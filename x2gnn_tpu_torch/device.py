@@ -1,0 +1,24 @@
+"""Device selection for the port's entry points.
+
+Entry points run on the card unless the caller asks for the CPU: a CUDA
+device that is missing raises, it never falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for `device`; raises if it names CUDA and no card is
+    present. Also turns TF32 off: the flagship runs in float32 and its
+    parity with the reference assumes full-precision matmuls and
+    convolutions."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but no CUDA device is available; "
+            "pass device='cpu' to run on the CPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return device
