@@ -14,7 +14,7 @@ from x2gnn_tpu.ops.pallas.blocked_attn import (
     expand_block_diagonal, pallas_blocked_attention)
 from x2gnn_tpu_torch.data.synthetic import random_molecule
 from x2gnn_tpu_torch.ops.blocked_attn import (
-    _check_no_grad, blocked_attention, blocked_attention_plain)
+    blocked_attention, blocked_attention_bwd_plain, blocked_attention_plain)
 
 H, C = 4, 8
 HC = H * C
@@ -104,35 +104,45 @@ def _tensors(p):
     return {name: torch.from_numpy(a) for name, a in p.items()}
 
 
+FLOATS = ("q", "k", "v", "e_atom", "w_sbf", "bias")
+ARGS = ("q", "k", "v", "e_atom", "rbf", "w_sbf", "bias", "z", "a_ids",
+        "b_ids")
+
+
 @pytest.mark.parametrize("mode", ["grad", "no_grad", "inference", "frozen"])
-def test_cuda_branch_refuses_inputs_that_need_a_gradient(mode):
-    """The kernel has no backward yet, so the CUDA branch raises where the
-    plain version would have recorded a graph; the CPU path stays
-    differentiable."""
+def test_autograd_function_on_cpu_gives_the_plain_gradients(mode):
+    """The Function runs the plain versions on CPU tensors: with a gradient
+    enabled its gradients are those of blocked_attention_bwd_plain; under
+    no_grad, inference_mode, or with no input needing a gradient, it
+    records no graph and its values are the plain forward's."""
     t = _tensors(_problem(4))
     if mode != "frozen":
-        t["w_sbf"].requires_grad_(True)
-    floats = [t[n] for n in ("q", "k", "v", "e_atom", "rbf", "w_sbf",
-                             "bias", "z")]
+        for name in FLOATS:
+            t[name].requires_grad_(True)
     ctx = {"no_grad": torch.no_grad,
            "inference": torch.inference_mode}.get(mode, torch.enable_grad)
     with ctx():
-        if mode == "grad":
-            with pytest.raises(NotImplementedError, match="no backward"):
-                _check_no_grad(*floats)
-        else:
-            _check_no_grad(*floats)
-        out = blocked_attention(t["q"], t["k"], t["v"], t["e_atom"],
-                                t["rbf"], t["w_sbf"], t["bias"], t["z"],
-                                t["a_ids"], t["b_ids"], heads=H,
-                                num_radial=K)
+        out = blocked_attention(*(t[n] for n in ARGS), heads=H, num_radial=K)
     assert out.requires_grad == (mode == "grad")
+    with torch.no_grad():
+        plain = blocked_attention_plain(*(t[n] for n in ARGS), heads=H,
+                                        num_radial=K)
+    np.testing.assert_array_equal(out.detach().numpy(), plain.numpy())
+    if mode != "grad":
+        return
+    g = torch.from_numpy(np.random.default_rng(7).normal(
+        size=out.shape).astype(np.float32))
+    got = torch.autograd.grad(out, [t[n] for n in FLOATS], g)
+    want = blocked_attention_bwd_plain(
+        *(t[n].detach() for n in ARGS), g, heads=H, num_radial=K)
+    for name, a, b in zip(FLOATS, got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
 
 
 @pytest.mark.parametrize("case,exc", [
     ("dtype", TypeError), ("shape", ValueError), ("contig", ValueError),
     ("heads", ValueError), ("degree", ValueError), ("head_dim", ValueError),
-    ("device", ValueError)])
+    ("device", ValueError), ("orders", ValueError)])
 def test_wrapper_rejects(case, exc):
     t = _tensors(_problem(3))
     heads = H
@@ -155,6 +165,9 @@ def test_wrapper_rejects(case, exc):
             t[name] = torch.cat([t[name], t[name][..., :16]], dim=-1)
     elif case == "device":
         t["z"] = t["z"].to("meta")
+    elif case == "orders":     # L = 9 spherical orders, beyond MAX_L = 8
+        t["rbf"] = torch.cat([t["rbf"], t["rbf"][..., :2 * K]], dim=-1)
+        t["w_sbf"] = torch.cat([t["w_sbf"], t["w_sbf"][:2 * K]], dim=0)
     with pytest.raises(exc):
         blocked_attention(t["q"], t["k"], t["v"], t["e_atom"], t["rbf"],
                           t["w_sbf"], t["bias"], t["z"], t["a_ids"],

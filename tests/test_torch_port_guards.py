@@ -32,7 +32,13 @@ def _imports(path):
 
 def test_port_imports_no_jax_nor_the_jax_package():
     files = _port_files()
-    assert len(files) > 15
+    assert len(files) > 25
+    scanned = {str(p.relative_to(REPO)) for p in files}
+    for module in ("train/trainer.py", "train/optim.py", "train/ema.py",
+                   "train/loss.py", "train/checkpoint.py",
+                   "train/__main__.py", "data/molecule.py",
+                   "profile_training.py"):
+        assert f"x2gnn_tpu_torch/{module}" in scanned, module
     bad = [(str(p.relative_to(REPO)), name) for p in files
            for name in _imports(p)
            if name.split(".")[0] in FORBIDDEN]
@@ -52,3 +58,22 @@ def test_default_device_raises_without_a_card():
     model = X2GNN(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Predictor(cfg, model)
+
+
+def test_training_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    import numpy as np
+    from x2gnn_tpu_torch.config import ModelConfig, TrainConfig
+    from x2gnn_tpu_torch.data.synthetic import synthetic_dataset
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    from x2gnn_tpu_torch.train.__main__ import main
+    from x2gnn_tpu_torch.train.trainer import Trainer
+    cfg = ModelConfig(conv_layers=1, in_channels=32, embedding_size=32,
+                      heads=4, edge_feat_dim=8, attention_layout="blocked")
+    graphs = synthetic_dataset(4, mean_atoms=5, edge_feat_dim=8)
+    model = X2GNN(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(model, cfg, TrainConfig(), graphs, np.zeros(4, np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--synthetic", "4"])

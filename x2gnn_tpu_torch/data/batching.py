@@ -1,7 +1,7 @@
-"""Static-shape graph batching for the serving path: concatenate + pad
+"""Static-shape graph batching for serving and training: concatenate + pad
 molecules to fixed budgets and build the atom-blocked tables.
 
-The serving subset of x2gnn_tpu/data/batching.py: `Budgets`,
+The single-window subset of x2gnn_tpu/data/batching.py: `Budgets`,
 `pad_budget_for` (:209-272) without the degree split or tier planning,
 `pad_graphs` (:275-477) for the blocked layout only, with no triplet or
 neighbor tables and no degree sort (only tiers and the split use it), and
@@ -127,10 +127,12 @@ def pad_graphs(
     graphs: Sequence[MolGraph],
     budgets: Budgets,
     n_graph: Optional[int] = None,
+    targets: Optional[np.ndarray] = None,
 ) -> GraphBatch:
     """Concatenate molecules and pad to static budgets; the arrays equal
     x2gnn_tpu's `pad_graphs(..., with_triplets=False)` for budgets without
-    a degree split or tiers. Each graph's target is `g.y[0]`."""
+    a degree split or tiers. Each graph's target is `targets[i]` if given
+    (shape (len(graphs),)), else `g.y[0]`."""
     n_node, n_edge, n_trip, n_deg = budgets
     n_graph = n_graph if n_graph is not None else len(graphs)
     if len(graphs) > n_graph:
@@ -163,7 +165,7 @@ def pad_graphs(
         edge_feat[e0:e0 + ne] = g.edge_feat
         atom_gid[a0:a0 + na] = gid
         edge_gid[e0:e0 + ne] = gid
-        y[gid] = g.y[0]
+        y[gid] = targets[gid] if targets is not None else g.y[0]
         a0, e0 = a0 + na, e0 + ne
 
     in_edges, in_mask, edge_inpos = _slot_table(edge_dst[:e0], n_node, n_deg)
@@ -193,11 +195,15 @@ def batch_iterator(
     graphs: Sequence[MolGraph],
     batch_size: int,
     budgets: Optional[Budgets] = None,
+    targets: Optional[np.ndarray] = None,
 ) -> Iterator[GraphBatch]:
     """Yield fixed-shape GraphBatches over `graphs` in order; the last one
-    is padded with empty graphs up to `batch_size`."""
+    is padded with empty graphs up to `batch_size`. `targets` (one per
+    graph) overrides the graphs' own `y[0]`."""
     if budgets is None:
         budgets = pad_budget_for(graphs, batch_size)
     for lo in range(0, len(graphs), batch_size):
-        yield pad_graphs(graphs[lo:lo + batch_size], budgets,
-                         n_graph=batch_size)
+        chunk = graphs[lo:lo + batch_size]
+        sub = (None if targets is None
+               else np.asarray(targets[lo:lo + len(chunk)]))
+        yield pad_graphs(chunk, budgets, n_graph=batch_size, targets=sub)

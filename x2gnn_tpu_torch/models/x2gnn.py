@@ -23,7 +23,7 @@ from x2gnn_tpu_torch.nn.layers import (
     Dense, EmbeddingBlock, RadialBasisLayer, ResidualLayer)
 from x2gnn_tpu_torch.nn.norm import GraphLayerNorm
 from x2gnn_tpu_torch.nn.readout import AtomWiseReadout
-from x2gnn_tpu_torch.ops.attention import injective_gather
+from x2gnn_tpu_torch.ops.attention import injective_gather, inverse_slots
 from x2gnn_tpu_torch.ops.basis import poly_envelope, sbf_radial_part
 from x2gnn_tpu_torch.ops.segment import segment_sum
 
@@ -35,6 +35,8 @@ class BlockedGeometry(NamedTuple):
     env: torch.Tensor          # (N, D, 1) envelope, 0 at pad slots
     in_src: torch.Tensor       # (N, D) source atom of each in-edge
     out2in: torch.Tensor       # (N, D) flat in-slot of each out-slot's edge
+    in2out: torch.Tensor       # (N*D,) flat out-slot of each in-slot's edge
+    mask_flat: torch.Tensor    # (N*D,) real in-slots
     rbf_env_out: torch.Tensor  # (N, D, L*K) radial sbf factor, out-table
     z: torch.Tensor            # (N, D, D) cos(angle) of in/out edge pairs
     a_ids: torch.Tensor        # (N, D) int32 in-edge source atom, -1 pad
@@ -57,9 +59,14 @@ def blocked_geometry(batch: GraphBatch, cfg: ModelConfig) -> BlockedGeometry:
     rbf_env = sbf_radial_part(d_safe.reshape(-1), cfg.sbf_dim, cfg.rbf_dim,
                               cfg.cutoff, cfg.envelope_exponent,
                               edge_mask.reshape(-1))         # (N*D, L, K)
+    # in->out re-index tables: out2in[n, s] = flat in-slot of atom n's
+    # s-th out-edge; in2out is its inverse per in-slot (x2gnn.py:126-132)
     out2in = batch.edge_inpos[batch.out_edges]               # (N, D)
+    in2out = inverse_slots(out2in, batch.out_mask, N * D)
+    mask_flat = edge_mask.reshape(-1)
     rbf_env_out = injective_gather(
-        rbf_env.reshape(N * D, cfg.sbf_dim * cfg.rbf_dim), out2in)
+        rbf_env.reshape(N * D, cfg.sbf_dim * cfg.rbf_dim), out2in, in2out,
+        mask_flat)
     out_dst = batch.edge_dst[batch.out_edges]                # (N, D)
     jk = pos[out_dst] - pos[:, None, :]
     cos_a = torch.einsum("nid,nkd->nik", ji, jk)
@@ -68,7 +75,7 @@ def blocked_geometry(batch: GraphBatch, cfg: ModelConfig) -> BlockedGeometry:
     z = torch.clamp(cos_a / norm, -1.0, 1.0)
     a_ids = torch.where(batch.in_mask, in_src, -1).to(torch.int32)
     b_ids = torch.where(batch.out_mask, out_dst, -2).to(torch.int32)
-    return BlockedGeometry(d_safe, env, in_src, out2in,
+    return BlockedGeometry(d_safe, env, in_src, out2in, in2out, mask_flat,
                            rbf_env_out.contiguous(), z.contiguous(),
                            a_ids.contiguous(), b_ids.contiguous())
 
@@ -130,12 +137,13 @@ class X2GNN(nn.Module):
         N, D = batch.in_edges.shape
         num_graphs = batch.y.shape[0]
         geo = blocked_geometry(batch, cfg)
-        mask_flat = batch.in_mask.reshape(-1)
+        mask_flat = geo.mask_flat
         src_flat = geo.in_src.reshape(-1)
         gid_flat = batch.edge_gid[batch.in_edges].reshape(-1)
 
         # ---- featurization (x2gnn.py:104-126) ----
-        edge_feat = injective_gather(batch.edge_feat, batch.in_edges)
+        edge_feat = injective_gather(batch.edge_feat, batch.in_edges,
+                                     batch.edge_inpos, batch.edge_mask)
         neo_x = F.silu(self.mat_trans(edge_feat * geo.env))
         neo_x = F.silu(self.emb_trans(neo_x))
         atom_emb = self.emb_block(batch.numbers)
@@ -149,7 +157,8 @@ class X2GNN(nn.Module):
         def edges_to_src_atoms(gated):
             # scatter-free readout aggregation (x2gnn.py:205-216): re-index
             # gated edge rows into the out-table and sum over the degree
-            g_out = injective_gather(gated, geo.out2in)
+            g_out = injective_gather(gated, geo.out2in, geo.in2out,
+                                     mask_flat)
             return torch.where(out_mask3, g_out, 0.0).sum(dim=1)
 
         def run_readout(i: int, x):
@@ -164,8 +173,8 @@ class X2GNN(nn.Module):
             res0 = out
             out = self._layer(f"conv_{i}")(
                 out.reshape(N, D, cfg.in_channels), node_rbf,
-                geo.rbf_env_out, edge_attr, geo.out2in, geo.z, geo.a_ids,
-                geo.b_ids)
+                geo.rbf_env_out, edge_attr, geo.out2in, geo.in2out,
+                mask_flat, geo.z, geo.a_ids, geo.b_ids)
             out = out.reshape(-1, cfg.in_channels)
             out = self._layer(f"norm_{i}")(out, gid_flat, num_graphs,
                                            mask=mask_flat)

@@ -49,6 +49,7 @@ class BlockedEdgeAttentionConv(nn.Module):
         self.sbf_l, self.sbf_k = sbf_l, sbf_k
         g = generator
         self.lin_rbf = Dense(rbf_dim, channels, use_bias=False, generator=g)
+        self.lin_rbf.flax_nested = False   # a plain nn.Dense in the reference
         self.lin_query = TorchDense(channels, channels, generator=g)
         self.lin_edge = TorchDense(emb_dim, channels, use_bias=False,
                                    generator=g)
@@ -58,18 +59,22 @@ class BlockedEdgeAttentionConv(nn.Module):
         self.lin_skip = TorchDense(channels, channels, generator=g)
 
     def forward(self, x_blk, rbf_blk, rbf_env_out, atom_edge_attr, out2in,
-                z, a_ids, b_ids):
+                in2out, in_mask_flat, z, a_ids, b_ids):
         """x_blk: (N, D, C) in-layout line-graph node features; rbf_blk:
         (N, D, K) radial basis (in-layout); rbf_env_out: (N, D, L*K) radial
         sbf factor of the out-table rows; atom_edge_attr: (N, emb);
-        out2in: (N, D) flat in-slot of each out-slot's edge; z/a_ids/b_ids:
-        cos(angle) and masked atom-id tables."""
+        out2in: (N, D) flat in-slot of each out-slot's edge; in2out:
+        (N*D,) its inverse; in_mask_flat: (N*D,) real in-slots;
+        z/a_ids/b_ids: cos(angle) and masked atom-id tables."""
         N, D, _ = x_blk.shape
         x_src = x_blk * self.lin_rbf(rbf_blk)
         q = self.lin_query(x_blk)
         e_atom = self.lin_edge(atom_edge_attr)
+        # pad rows of k_out/v_out carry the projections' bias, but every
+        # pair with a pad key is masked, so the kernel's dk/dv there are
+        # exactly 0 and the bias gradients are unaffected (:257-265)
         x_src_out = injective_gather(x_src.reshape(N * D, self.channels),
-                                     out2in)
+                                     out2in, in2out, in_mask_flat)
         k_out = self.lin_key(x_src_out)
         v_out = self.lin_value(x_src_out)
         out = blocked_attention(

@@ -20,6 +20,10 @@ from x2gnn_tpu_torch.ops.basis import radial_frequencies_init
 class _Linear(nn.Module):
     """y = x W^T + b with a torch-layout (out, in) weight."""
 
+    # the flax counterpart nests its kernel in a `Dense_0` (the reference's
+    # Dense/TorchDense wrappers); a plain flax nn.Dense sets this False
+    flax_nested = True
+
     def __init__(self, in_features: int, features: int, use_bias: bool):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(features, in_features))
@@ -64,12 +68,38 @@ class ResidualLayer(nn.Module):
         return F.silu(self.lin1(F.silu(self.lin0(x)))) + x
 
 
+class _FreqScaledLookup(torch.autograd.Function):
+    """table[idx] whose backward divides each looked-up row's gradient by
+    the count of its index in the batch (torch's `scale_grad_by_freq`) and
+    gives row 0 none (torch's `padding_idx=0`), as the reference's
+    `_freq_scaled_lookup` (x2gnn_tpu/nn/layers.py:77-104). The counts and
+    the row sums are one-hot products, so the gradient is the same bit for
+    bit on every run (no atomics)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.vocab = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        onehot = F.one_hot(idx, ctx.vocab).to(g.dtype)       # (n, vocab)
+        counts = onehot.sum(0)
+        scale = 1.0 / torch.clamp(counts[idx], min=1.0)
+        scale = torch.where(idx == 0, 0.0, scale)
+        return onehot.t() @ (g * scale[:, None]), None
+
+
 class EmbeddingBlock(nn.Module):
     """silu(Dense(embed(Z))) atom embedding.
 
-    Row 0 (padding, Z=0) starts at zero. The max_norm renorm is applied to
-    the table inside the forward with a safe norm (1e-24 under the sqrt),
-    as the reference does, instead of torch's in-place `max_norm`."""
+    Row 0 (padding, Z=0) starts at zero and gets no gradient; each row's
+    gradient is divided by its index's count in the batch. The max_norm
+    renorm is applied to the table inside the forward with a safe norm
+    (1e-24 under the sqrt), as the reference does, instead of torch's
+    in-place `max_norm`."""
 
     def __init__(self, embedding_size: int = 128, vocab: int = 10,
                  max_norm: float = 3.0,
@@ -85,7 +115,7 @@ class EmbeddingBlock(nn.Module):
         table = self.embedding
         norms = torch.sqrt((table * table).sum(-1, keepdim=True) + 1e-24)
         table = table * torch.clamp(self.max_norm / norms, max=1.0)
-        return F.silu(self.lin(table[numbers]))
+        return F.silu(self.lin(_FreqScaledLookup.apply(table, numbers)))
 
 
 class MLPHead(nn.Module):

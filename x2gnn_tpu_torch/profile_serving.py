@@ -22,7 +22,6 @@ def main() -> None:
     args = ap.parse_args()
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from x2gnn_tpu_torch.config import ModelConfig
@@ -44,6 +43,16 @@ def main() -> None:
         pred.predict(graphs)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    print_device_profile(prof, wall_us, args.top)
+
+
+def print_device_profile(prof, wall_us: float, top: int) -> None:
+    """Print device busy time, idle share 1 - busy/wall and the device
+    time per kernel name, largest first, of a finished torch.profiler
+    run over `wall_us` microseconds; raise if it recorded no device time."""
+    import torch
+    from torch.autograd import DeviceType
+
     # device-side events only (kernels, copies): a CPU op's own device
     # time repeats that of the kernels it launched
     rows = sorted(((e.self_device_time_total, e.count, e.key)
@@ -56,7 +65,7 @@ def main() -> None:
     print(f"{torch.cuda.get_device_name(0)}: wall {wall_us / 1e3:.3f} ms, "
           f"device busy {busy_us / 1e3:.3f} ms, idle share "
           f"{1 - busy_us / wall_us:.3f}")
-    for us, count, key in rows[:args.top]:
+    for us, count, key in rows[:top]:
         print(f"{us / 1e3:10.3f} ms {100 * us / busy_us:6.2f}% "
               f"{count:6d}x  {key[:90]}")
 

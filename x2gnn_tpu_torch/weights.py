@@ -1,4 +1,4 @@
-"""Load parameters from a flat flax parameter dict.
+"""Carry parameters between a flat flax parameter dict and the port.
 
 The dict is `{flax/path: np.ndarray}` as the reference's
 `x2gnn_tpu.utils.parity.export_params_flat` writes it. The port's module
@@ -9,11 +9,14 @@ and parameter names follow the flax tree, so the mapping is mechanical:
     transposed, except for `LinearParams` (lin_sbf), whose `kernel` keeps
     the flax layout because the fused kernel contracts it as (L*K, HC);
   * every other leaf keeps its name (embedding, frequencies, bias).
+`export_flax_params` is the inverse: it gives back the flax path of every
+port parameter, re-inserting `Dense_0` where the reference nests it
+(every Dense/TorchDense but a conv's plain `lin_rbf`).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,3 +49,34 @@ def load_flax_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> None:
     missing = sorted(set(params) - filled)
     if missing:
         raise KeyError(f"port parameters left unfilled: {missing}")
+
+
+def _flax_path_of(model: nn.Module, name: str) -> Tuple[str, bool]:
+    """(flax path, transposed) of the port parameter `name`: transposed
+    is True where the flax kernel is the transpose of the torch weight."""
+    from x2gnn_tpu_torch.nn.layers import _Linear
+    prefix, _, leaf = name.rpartition(".")
+    parts = prefix.split(".") if prefix else []
+    module = model.get_submodule(prefix) if prefix else model
+    transposed = False
+    if isinstance(module, _Linear):
+        parts += ["Dense_0"] if module.flax_nested else []
+        if leaf == "weight":
+            leaf, transposed = "kernel", True
+    return "/".join(parts + [leaf]), transposed
+
+
+def export_flax_params(model: nn.Module,
+                       tensors: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> Dict[str, np.ndarray]:
+    """{flax path: float32 ndarray} of the model's parameters, or of
+    `tensors` ({port parameter name: tensor}, e.g. gradients), in the
+    layout `load_flax_params` reads."""
+    if tensors is None:
+        tensors = dict(model.named_parameters())
+    out = {}
+    for name, t in tensors.items():
+        path, transposed = _flax_path_of(model, name)
+        value = t.detach().cpu().numpy()
+        out[path] = np.ascontiguousarray(value.T if transposed else value)
+    return out
