@@ -14,9 +14,11 @@ Phases, each of which raises on failure (exit code != 0):
      sm_90a, all started together;
   3. kernels vs plain versions at the serving shape (N=1024, D=24) and at
      a D>40 AID-scale shape (N=512, D=48), on real padded batches: the
-     forward (checked and timed), and the backward (all six gradients,
-     bitwise equal across two runs) with its fixed-order reduce kernel
-     (checked);
+     forward (checked and timed), and the backward (all six gradients from
+     the forward kernel's output, bitwise equal across two runs, zeros at
+     dead rows) with its fixed-order reduce kernel (checked), the kernel
+     alone timed; each backward check prints the kernel's launch plan,
+     registers, spills, shared memory and resident warps per SM;
   4. serving: the flagship model (4 layers, 128 channels, 16 heads, L=7,
      K=6, 338 edge features, random weights from a seeded generator)
      serves 256 QM9-scale molecules at batch 32, then 16 AID-scale
@@ -32,7 +34,10 @@ Phases, each of which raises on failure (exit code != 0):
      8 molecules on the card against the same step on the CPU (loss and
      every gradient); the backward and reduce kernels against their plain
      versions again, and timed, at the shapes of the first batch of the
-     2-epoch run and of the AID-scale step;
+     2-epoch run and of the AID-scale step, and checked on a rectangular
+     window (DI = 3/4 DK) cut from the first batch and with K=9 radial
+     functions on that batch (dW in shared memory); the reduce timed
+     against partial.sum(0) on the same partials;
   7. training times: ms per step (CUDA events around steps on cached
      batches) and training molecules/s per epoch.
 The line before the last is a JSON object {"kernels": [...]}; the last
@@ -99,6 +104,26 @@ def median_ms(fn, reps: int = 30, warmup: int = 5) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def backlog_ms(fn, reps: int = 30, warmup: int = 5) -> float:
+    """Device time of one call of fn, for calls shorter than the host's
+    launch overhead: a sleep kernel keeps the stream busy while the host
+    queues all `reps` calls between two CUDA events, so the events time the
+    calls back to back on the device, not the host's enqueue."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)      # ~10 ms of the card's clock
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def attention_work(args, heads: int, num_radial: int, out_bytes: int):
@@ -192,10 +217,13 @@ def check_kernel(tag, args, cfg):
             "library_ms": None}
 
 
-def attention_bwd_work(args, g, heads: int, num_radial: int):
-    """(bytes, FP32 operations) the attention backward needs on these
-    inputs: each input and g read once, each gradient (dq, dk, dv, de, dW,
-    db) written once; per valid pair 4L+17 operations per channel (score
+def attention_bwd_work(args, g, out, heads: int, num_radial: int):
+    """(bytes, bytes of `out`, FP32 operations, valid pairs) of the
+    attention backward on these inputs. The bytes the function needs: each
+    input and g read once, each gradient (dq, dk, dv, de, dW, db) written
+    once; the kernel also reads the saved forward output `out`, which it
+    reads instead of recomputing it, counted apart. Per valid pair 4L+17
+    operations per channel (score
     product and sum, the L FMAs of s, ds, dv, dalpha, dq and dk FMAs, the L
     FMAs of dG, db), 6 per head (exp, alpha, inner, dscore) and 4(L-2) for
     the Legendre recurrence; per key in a valid pair 4*L*K per channel (G
@@ -212,7 +240,7 @@ def attention_bwd_work(args, g, heads: int, num_radial: int):
     grads = [q, k, v, e, w, bias]          # dq, dk, dv, de, dW, db
     nbytes = (sum(t.numel() * t.element_size() for t in (*args, g))
               + sum(t.numel() * 4 for t in grads))
-    return nbytes, ops, n_pairs
+    return nbytes, out.numel() * out.element_size(), ops, n_pairs
 
 
 def bound(nbytes, ops):
@@ -227,28 +255,53 @@ def bound(nbytes, ops):
 GRAD_NAMES = ("dq", "dk", "dv", "de", "dW", "db")
 
 
+def bwd_occupancy_line(args, cfg):
+    """The backward kernel's launch plan at this shape and what the card
+    gives it (registers, spills, shared memory, resident CTAs and warps per
+    SM), as one log line; returns the occupancy dict."""
+    from x2gnn_tpu_torch.ops.blocked_attn import bwd_occupancy, bwd_plan
+
+    N, DI, HC = args[0].shape
+    DK = args[1].shape[1]
+    plan = bwd_plan(N, DI, DK, HC, cfg.heads, cfg.sbf_dim, cfg.rbf_dim)
+    occ = bwd_occupancy(plan)
+    log(f"[bwd plan N={N} DI={DI} DK={DK} K={cfg.rbf_dim}] grid "
+        f"{plan.grid} x {plan.channel_groups} CTAs of {plan.warpgroups} x "
+        f"{plan.threads} threads, {plan.ctas_per_sm} per SM planned, "
+        f"i_chunk {plan.i_chunk}, {plan.smem_bytes} B dynamic shared memory; "
+        f"{occ['registers']} registers, {occ['spill_bytes']} B spilled, "
+        f"{occ['static_smem_bytes']} B static shared; {occ['ctas_per_sm']} "
+        f"CTAs = {occ['warps_per_sm']} warps resident per SM")
+    return occ
+
+
 def check_bwd_kernel(tag, args, cfg, seed, timed):
     """Backward kernel and its reduce vs the plain version on the card, for
-    g from a seeded generator: all six gradients, bitwise equal across two
-    runs, exact zeros at dead rows, the reduce against a float64 sum of the
-    kernel's own partials. With `timed`, returns the JSON records of the
+    g from a seeded generator and the forward kernel's output: all six
+    gradients, bitwise equal across two runs, exact zeros at dead rows,
+    the reduce against a float64 sum of the kernel's own partials, and
+    the kernel alone timed. With `timed`, returns the JSON records of the
     backward kernel and of the reduce kernel at this shape: the backward's
     ms is the kernel alone (its ms_with_reduce adds the reduce), its bound
+    (without the saved output's bytes; bound_ms_with_saved_out with them)
     and plain version are those of the whole backward."""
     import numpy as np
     import torch
     from x2gnn_tpu_torch.ops.blocked_attn import (
         blocked_attention_bwd, blocked_attention_bwd_partials,
-        blocked_attention_bwd_plain, reduce_partials)
+        blocked_attention_bwd_plain, blocked_attention_fwd, reduce_partials)
 
     H, K = cfg.heads, cfg.rbf_dim
     g = torch.from_numpy(np.random.default_rng(seed).normal(
         size=tuple(args[0].shape)).astype(np.float32)).to(args[0].device)
+    out = blocked_attention_fwd(*args, heads=H, num_radial=K)
     tag = (f"{tag} N={args[0].shape[0]} DI={args[0].shape[1]} "
            f"DK={args[1].shape[1]}")
-    got = blocked_attention_bwd(*args, g, heads=H, num_radial=K)
-    again = blocked_attention_bwd(*args, g, heads=H, num_radial=K)
-    ref = blocked_attention_bwd_plain(*args, g, heads=H, num_radial=K)
+    occ = bwd_occupancy_line(args, cfg)
+    got = blocked_attention_bwd(*args, g, heads=H, num_radial=K, out=out)
+    again = blocked_attention_bwd(*args, g, heads=H, num_radial=K, out=out)
+    ref = blocked_attention_bwd_plain(*args, g, heads=H, num_radial=K,
+                                      out=out)
     torch.cuda.synchronize()
     max_abs = 0.0
     for name, a, b in zip(GRAD_NAMES, got, ref):
@@ -278,7 +331,7 @@ def check_bwd_kernel(tag, args, cfg, seed, timed):
         raise AssertionError(f"bwd {tag}: dead rows got a gradient")
     # the reduce on the kernel's own partials
     partial = blocked_attention_bwd_partials(*args, g, heads=H,
-                                             num_radial=K)[-1]
+                                             num_radial=K, out=out)[-1]
     red = reduce_partials(partial)
     red_err = float((red.double() - partial.double().sum(0)).abs().max())
     tol = 1e-5 * float(partial.abs().sum(0).max())
@@ -286,33 +339,58 @@ def check_bwd_kernel(tag, args, cfg, seed, timed):
         f"{red_err:.3e} against a float64 sum (limit {tol:.3e})")
     if red_err > tol or not torch.equal(red, reduce_partials(partial)):
         raise AssertionError(f"reduce {tag}: wrong or not reproducible")
+    ms = median_ms(lambda: blocked_attention_bwd_partials(
+        *args, g, heads=H, num_radial=K, out=out))
+    nbytes, out_bytes, ops, n_pairs = attention_bwd_work(args, g, out, H, K)
     if not timed:
+        log(f"[bwd {tag}] kernel {ms:.4f} ms/launch over {n_pairs} valid "
+            "pairs")
         return None
 
-    ms = median_ms(lambda: blocked_attention_bwd_partials(
-        *args, g, heads=H, num_radial=K))
     with_reduce = median_ms(lambda: blocked_attention_bwd(
-        *args, g, heads=H, num_radial=K))
+        *args, g, heads=H, num_radial=K, out=out))
     plain_ms = median_ms(lambda: blocked_attention_bwd_plain(
-        *args, g, heads=H, num_radial=K))
-    nbytes, ops, n_pairs = attention_bwd_work(args, g, H, K)
+        *args, g, heads=H, num_radial=K, out=out))
     bound_ms, bound_by, t_bytes, t_ops = bound(nbytes, ops)
+    with_out_ms = bound(nbytes + out_bytes, ops)[0]
     log(f"[bwd {tag}] kernel {ms:.4f} ms/launch, kernel+reduce "
         f"{with_reduce:.4f} ms, plain {plain_ms:.4f} ms; {nbytes} bytes "
-        f"({t_bytes:.4f} ms at 3.35 TB/s), {ops} FP32 ops over {n_pairs} "
-        f"valid pairs ({t_ops:.4f} ms at 67 TFLOP/s)")
+        f"({t_bytes:.4f} ms at 3.35 TB/s; {with_out_ms:.4f} ms with the saved"
+        f" out's {out_bytes} bytes), {ops} FP32 ops over {n_pairs} valid "
+        f"pairs ({t_ops:.4f} ms at 67 TFLOP/s); kernel alone "
+        f"{ms / bound_ms:.1f}x its bound")
     bwd = {"ms": ms, "ms_with_reduce": with_reduce, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": max_abs,
-           "library_ms": None}
-    r_ms = median_ms(lambda: reduce_partials(partial))
-    r_plain = median_ms(lambda: partial.sum(0))
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_ms_with_saved_out": with_out_ms, "max_abs_err": max_abs,
+           "library_ms": None, "warps_per_sm": occ["warps_per_sm"]}
+    # reduce and partial.sum(0) on the same partials, in turns, timed on
+    # the device back to back (both are shorter than a launch's host time)
+    r_ms = backlog_ms(lambda: reduce_partials(partial))
+    r_plain = backlog_ms(lambda: partial.sum(0))
+    r_ms2 = backlog_ms(lambda: reduce_partials(partial))
+    r_plain2 = backlog_ms(lambda: partial.sum(0))
     r_bound, r_by, _, _ = bound(partial.numel() * 4 + red.numel() * 4,
                                 partial.numel())
-    log(f"[reduce {tag}] kernel {r_ms:.4f} ms, torch.sum {r_plain:.4f} ms, "
-        f"bound {r_bound:.4f} ms ({r_by})")
+    log(f"[reduce {tag}] kernel {r_ms:.4f} / {r_ms2:.4f} ms, partial.sum(0) "
+        f"{r_plain:.4f} / {r_plain2:.4f} ms (two turns), bound {r_bound:.4f} "
+        f"ms ({r_by})")
+    verdict = ("no slower than" if max(r_ms, r_ms2) <= min(r_plain, r_plain2)
+               else "slower than")
+    log(f"[reduce {tag}] the kernel is {verdict} partial.sum(0) in both "
+        "turns")
     reduce = {"ms": r_ms, "plain_ms": r_plain, "bound_ms": r_bound,
               "bound_by": r_by, "max_abs_err": red_err, "library_ms": r_plain}
     return bwd, reduce
+
+
+def rect_window(args, di, dk):
+    """A rectangular DI != DK window cut from square attention inputs: the
+    first di query slots and the first dk key slots of every atom."""
+    q, k, v, e, rbf, w, bias, z, a_ids, b_ids = args
+    return (q[:, :di].contiguous(), k[:, :dk].contiguous(),
+            v[:, :dk].contiguous(), e, rbf[:, :dk].contiguous(), w, bias,
+            z[:, :di, :dk].contiguous(), a_ids[:, :di].contiguous(),
+            b_ids[:, :dk].contiguous())
 
 
 def serve(pred, graphs, expect_launches, tag):
@@ -616,9 +694,21 @@ def main() -> int:
     # the backward and reduce kernels against their plain versions, and
     # timed, at the shapes training gave them: the first batch of each run
     train_batch = trainer.batches(trainer.train_idx)[0]
+    train_args = batch_kernel_inputs(train_batch, mcfg, seed=23)
     records["bwd"], records["reduce"] = check_bwd_kernel(
-        "train", batch_kernel_inputs(train_batch, mcfg, seed=23), mcfg,
-        seed=24, timed=True)
+        "train", train_args, mcfg, seed=24, timed=True)
+    # a rectangular window (DI != DK) cut from the same real batch, as
+    # degree tiers will give the kernel
+    n_slots = train_args[0].shape[1]
+    check_bwd_kernel("train rect", rect_window(train_args, n_slots * 3 // 4,
+                                               n_slots), mcfg, seed=27,
+                     timed=False)
+    # K = 9 radial functions, beyond the kernel's 6 in registers: dW in
+    # shared memory, on the same batch
+    cfg_k9 = dataclasses.replace(mcfg, rbf_dim=9)
+    check_bwd_kernel("train K=9", batch_kernel_inputs(train_batch, cfg_k9,
+                                                      seed=28),
+                     cfg_k9, seed=29, timed=False)
     records["bwd_aid"], _ = check_bwd_kernel(
         "train AID", batch_kernel_inputs(aid_batch, mcfg, seed=25), mcfg,
         seed=26, timed=True)
@@ -633,7 +723,8 @@ def main() -> int:
                     for r in train_records))
     log(f"[train] backward kernel {records['bwd']['ms']:.4f} ms per launch"
         f" at N={n}, D={d} (with the reduce "
-        f"{records['bwd']['ms_with_reduce']:.4f} ms); "
+        f"{records['bwd']['ms_with_reduce']:.4f} ms, "
+        f"{records['bwd']['warps_per_sm']} resident warps per SM); "
         f"{records['bwd_aid']['ms']:.4f} ms at N, D = "
         f"{tuple(aid_batch.in_edges.shape)}")
 

@@ -14,7 +14,7 @@ from test_torch_port_blocked_attn import HC, H, K, L, _problem
 from x2gnn_tpu.ops.pallas.blocked_attn import (
     expand_block_diagonal, pallas_blocked_attention)
 from x2gnn_tpu_torch.ops.blocked_attn import (
-    blocked_attention_bwd_plain, blocked_attention_plain)
+    blocked_attention, blocked_attention_bwd_plain, blocked_attention_plain)
 
 ARGS = ("q", "k", "v", "e_atom", "rbf", "w_sbf", "bias", "z", "a_ids",
         "b_ids")
@@ -45,8 +45,11 @@ def _reference_grads(p, g, i_chunk=None):
 
 def _port_grads(p, g):
     t = {name: torch.from_numpy(a) for name, a in p.items()}
+    out = blocked_attention_plain(*(t[n] for n in ARGS), heads=H,
+                                  num_radial=K)
     return [x.numpy() for x in blocked_attention_bwd_plain(
-        *(t[n] for n in ARGS), torch.from_numpy(g), heads=H, num_radial=K)]
+        *(t[n] for n in ARGS), torch.from_numpy(g), heads=H, num_radial=K,
+        out=out)]
 
 
 @pytest.mark.parametrize("window,i_chunk", [
@@ -78,6 +81,45 @@ def test_bwd_plain_matches_autograd(window):
     for name, a, b in zip(DIFF, _port_grads(p, g), want):
         np.testing.assert_allclose(a, b.numpy(), rtol=1e-5, atol=1e-5,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("window,i_chunk", [
+    ("square", None), ("rect", None), ("square", 2)])
+def test_bwd_plain_with_saved_out_matches_pallas_interpret(window, i_chunk):
+    """The plain backward given the forward output (as the autograd
+    Function saves it, and as the CUDA kernel reads it for inner(i,h))
+    against _bwd_kernel and _bwd_kernel_ichunk."""
+    p = _problem(5) if window == "square" else _problem(6, di=4, dk=7)
+    g = _g(p, 13)
+    t = {name: torch.from_numpy(a) for name, a in p.items()}
+    out = blocked_attention_plain(*(t[n] for n in ARGS), heads=H,
+                                  num_radial=K)
+    got = blocked_attention_bwd_plain(*(t[n] for n in ARGS),
+                                      torch.from_numpy(g), heads=H,
+                                      num_radial=K, out=out)
+    ref = _reference_grads(p, g, i_chunk)
+    for name, a, b in zip(DIFF, got, ref):
+        np.testing.assert_allclose(a.numpy(), b.reshape(a.shape),
+                                   err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("window", ["square", "rect"])
+def test_autograd_function_saves_out_and_matches_plain_autograd(window):
+    """blocked_attention (the autograd Function, which now saves its
+    output for the backward) against torch.autograd.grad through the plain
+    forward, on the CPU."""
+    p = _problem(7) if window == "square" else _problem(8, di=6, dk=3)
+    g = torch.from_numpy(_g(p, 14))
+    grads = []
+    for fn in (blocked_attention, blocked_attention_plain):
+        t = {name: torch.from_numpy(a) for name, a in p.items()}
+        for name in DIFF:
+            t[name].requires_grad_(True)
+        out = fn(*(t[n] for n in ARGS), heads=H, num_radial=K)
+        grads.append(torch.autograd.grad(out, [t[n] for n in DIFF], g))
+    for name, a, b in zip(DIFF, *grads):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
 
 
 def test_dead_rows_and_pad_keys_get_exactly_zero():

@@ -19,6 +19,7 @@ from x2gnn_tpu_torch.ops.blocked_attn import (
 H, C = 4, 8
 HC = H * C
 L, K = 7, 6
+RADIAL_TOO_MANY = 400   # K whose W rows do not fit the backward's shared memory
 
 
 def _problem(seed, di=None, dk=None):
@@ -134,7 +135,7 @@ def test_autograd_function_on_cpu_gives_the_plain_gradients(mode):
         size=out.shape).astype(np.float32))
     got = torch.autograd.grad(out, [t[n] for n in FLOATS], g)
     want = blocked_attention_bwd_plain(
-        *(t[n].detach() for n in ARGS), g, heads=H, num_radial=K)
+        *(t[n].detach() for n in ARGS), g, heads=H, num_radial=K, out=plain)
     for name, a, b in zip(FLOATS, got, want):
         np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
 
@@ -142,7 +143,7 @@ def test_autograd_function_on_cpu_gives_the_plain_gradients(mode):
 @pytest.mark.parametrize("case,exc", [
     ("dtype", TypeError), ("shape", ValueError), ("contig", ValueError),
     ("heads", ValueError), ("degree", ValueError), ("head_dim", ValueError),
-    ("device", ValueError), ("orders", ValueError)])
+    ("device", ValueError), ("orders", ValueError), ("radial", ValueError)])
 def test_wrapper_rejects(case, exc):
     t = _tensors(_problem(3))
     heads = H
@@ -168,7 +169,13 @@ def test_wrapper_rejects(case, exc):
     elif case == "orders":     # L = 9 spherical orders, beyond MAX_L = 8
         t["rbf"] = torch.cat([t["rbf"], t["rbf"][..., :2 * K]], dim=-1)
         t["w_sbf"] = torch.cat([t["w_sbf"], t["w_sbf"][:2 * K]], dim=0)
+    elif case == "radial":
+        t["rbf"] = t["rbf"][..., :1].repeat(1, 1, L * RADIAL_TOO_MANY)
+        t["w_sbf"] = t["w_sbf"][:1].repeat(L * RADIAL_TOO_MANY, 1)
     with pytest.raises(exc):
         blocked_attention(t["q"], t["k"], t["v"], t["e_atom"], t["rbf"],
                           t["w_sbf"], t["bias"], t["z"], t["a_ids"],
-                          t["b_ids"], heads=heads, num_radial=K)
+                          t["b_ids"], heads=heads,
+                          num_radial=RADIAL_TOO_MANY if case == "radial"
+                          else K)
+

@@ -1,11 +1,12 @@
 """Fused atom-blocked attention (counterpart of
 x2gnn_tpu/ops/pallas/blocked_attn.py).
 
-`blocked_attention` is a `torch.autograd.Function`. On CUDA tensors its
-forward launches the hand-written kernel of `csrc/blocked_attn_fwd.cu`
-and its backward those of `csrc/blocked_attn_bwd.cu` (the gradient kernel,
-then a fixed-order sum of its per-atom dW/db partials); on CPU tensors
-both run the plain PyTorch versions `blocked_attention_plain` and
+`blocked_attention` is a `torch.autograd.Function` that saves its
+output for the backward. On CUDA tensors its forward launches the
+hand-written kernel of `csrc/blocked_attn_fwd.cu` and its backward those
+of `csrc/blocked_attn_bwd.cu` (the gradient kernel, laid out by
+`bwd_plan`, then a fixed-order sum of its per-CTA dW/db partials); on CPU
+tensors both run the plain PyTorch versions `blocked_attention_plain` and
 `blocked_attention_bwd_plain`. All take the un-expanded sbf weight
 `w_sbf` (L*K, HC); the reference's kernel takes its block-diagonal
 expansion instead (`expand_block_diagonal`, :64-71), so the port's dW is
@@ -28,6 +29,7 @@ and bias; rbf and z are geometry and get none, as in the reference
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -35,7 +37,8 @@ import torch
 
 _NEG = -1e30
 MAX_DEGREE = 64   # the kernels' largest DI and DK
-MAX_L = 8         # the backward kernel keeps L values per thread
+MAX_L = 8         # the backward kernel keeps L values of G and dG per thread
+REG_K = 6         # K whose dW the backward kernel keeps in registers
 
 
 def _legendre_stack(z: torch.Tensor, L: int):
@@ -101,11 +104,14 @@ def blocked_attention_plain(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids,
 
 
 def blocked_attention_bwd_plain(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids,
-                                b_ids, g, heads: int, num_radial: int):
+                                b_ids, g, heads: int, num_radial: int, *,
+                                out):
     """Plain PyTorch version of the backward kernel, step by step as the
     reference's `_bwd_kernel` (:198-279): recompute the softmax, fold
-    rnorm into g, then ds, dv, dalpha, inner, dscores, dq/dk, dG, dW, db,
-    de. Returns (dq, dk, dv, de, dW, db) with dW (L*K, HC) the gradient of
+    rnorm into g, then ds, dv, dalpha, dscores, dq/dk, dG, dW, db, de.
+    inner(i,h) = sum_k alpha dalpha is read, as the kernel reads it, from
+    the forward output: sum_{c in h} g out (`out` as the forward returned
+    it). Returns (dq, dk, dv, de, dW, db) with dW (L*K, HC) the gradient of
     the un-expanded w_sbf and db (HC,)."""
     N, DI, HC = q.shape
     H, K = heads, num_radial
@@ -123,7 +129,7 @@ def blocked_attention_bwd_plain(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids,
     ds = gn4 * v4 * ex_rep                                  # (N,DI,DK,HC)
     dv = (gn4 * s * ex_rep).sum(dim=1)
     dalpha = (g4 * v4 * s).reshape(*ds.shape[:3], H, C).sum(-1)
-    inner = (alpha * dalpha).sum(dim=2, keepdim=True)
+    inner = (g * out).reshape(N, DI, 1, H, C).sum(-1)       # (N,DI,1,H)
     dscores = alpha * (dalpha - inner) / float(np.sqrt(C))
     dscores = torch.where(valid[..., None], dscores, 0.0)
     dsc_rep = dscores.repeat_interleave(C, dim=-1)
@@ -179,8 +185,7 @@ def _check(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids, heads,
     if 32 % C or HC % 32 or HC > 1024:
         raise ValueError(f"H={heads}, C={C}: the kernels need C dividing 32 "
                          "and HC a multiple of 32 up to 1024")
-    if L > MAX_L:
-        raise ValueError(f"L={L}: the backward kernel takes L <= {MAX_L}")
+    bwd_plan(N, DI, DK, HC, heads, L, K)   # raises on what it cannot lay out
 
 
 def _raise_on(lib, err, name, shape):
@@ -214,19 +219,127 @@ def blocked_attention_fwd(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids,
     return out
 
 
+# The backward kernel's launch plan. A CTA is `warpgroups` warpgroups (4,
+# fewer for windows of fewer than 4 keys) of up to 128 threads, which split
+# each atom's keys: 16 warps on an SM. Its shared memory is sized so that
+# 4 // warpgroups CTAs fit on one SM of an H100 (228 KB of shared memory
+# per SM, 1 KB of it reserved per CTA; 227 KB at most for one CTA); where
+# that does not fit (K > REG_K keeps dW in shared memory, L*K rows per
+# warpgroup), one CTA per SM with as many warpgroups as fit. The grid is at
+# most 132 SMs x those CTAs, persistent: a constant, so the plan and the
+# order of dW/db's sums depend on the shape alone, never on the card the
+# kernel runs on.
+SMEM_PER_SM = 233472
+SMEM_RESERVED_PER_CTA = 1024
+MAX_SMEM_PER_CTA = 232448
+BWD_SMS = 132
+BWD_WARPGROUPS_PER_SM = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """Launch plan of the backward kernel: `grid` persistent CTAs of
+    `warpgroups` x `threads` threads (each warpgroup one thread per channel
+    of a group of `threads` channels and its share of the keys;
+    `channel_groups` groups along grid.y), CTA r walking the atoms r,
+    r + grid, ..., the valid queries of an atom in chunks of `i_chunk`,
+    with `smem_bytes` of dynamic shared memory, `ctas_per_sm` of them
+    sized to fit on one SM."""
+    grid: int
+    threads: int
+    warpgroups: int
+    channel_groups: int
+    i_chunk: int
+    smem_bytes: int
+    ctas_per_sm: int
+
+
+def bwd_plan(N: int, DI: int, DK: int, HC: int, heads: int, L: int,
+             K: int) -> BwdPlan:
+    """The backward kernel's launch plan for a shape; raises ValueError on
+    a shape the kernel does not take. blocked_attn_bwd (the C entry point)
+    checks the plan again."""
+    C = HC // heads if heads > 0 else 0
+    if not (N >= 1 and 1 <= DI <= MAX_DEGREE and 1 <= DK <= MAX_DEGREE):
+        raise ValueError(f"N={N}, DI={DI}, DK={DK}: the backward kernel "
+                         f"takes N >= 1 and DI, DK in 1..{MAX_DEGREE}")
+    if heads <= 0 or HC % heads or C < 1 or 32 % C or HC % 32 or HC > 1024:
+        raise ValueError(f"HC={HC}, heads={heads}: the backward kernel needs "
+                         "C dividing 32 and HC a multiple of 32 up to 1024")
+    if not (1 <= L <= MAX_L and K >= 1):
+        raise ValueError(f"L={L}, K={K}: the backward kernel takes L in "
+                         f"1..{MAX_L} and K >= 1")
+    threads = next(t for t in (128, 96, 64, 32) if HC % t == 0)
+    hb = threads // C
+    LK = L * K
+
+    def up4(words):     # regions start 16-byte aligned
+        return -(-words // 4) * 4
+
+    # 4-byte words, as make_layout in csrc/blocked_attn_bwd.cu: per CTA the
+    # compacted slots and atom ids, the L prefactors, 8 words of counts and
+    # masks, de per warpgroup, W's columns, the atom's rbf rows and, for
+    # K > REG_K, dW per warpgroup; per chunk of queries their q and g rows,
+    # dq rows per warpgroup, alpha (DK x heads), pref_l P_l (DK x 8) and
+    # inner (heads). The chunk's region also holds the final dW/db
+    # reduction, (L*K + 1) rows.
+    def words(wg, ic):
+        fixed = (2 * up4(DI) + 2 * up4(DK) + MAX_L + 8 + wg * threads
+                 + LK * threads + up4(DK * LK)
+                 + (wg * LK * threads if K > REG_K else 0))
+        chunk = ((2 + wg) * ic * threads + up4(ic * DK * hb)
+                 + ic * DK * MAX_L + up4(ic * hb))
+        return fixed + max(chunk, (LK + 1) * threads)
+
+    wg0 = min(BWD_WARPGROUPS_PER_SM, DK)
+    for warpgroups, ctas_per_sm in (
+            [(wg0, BWD_WARPGROUPS_PER_SM // wg0)]
+            + [(wg, 1) for wg in range(wg0, 0, -1)]):
+        budget = (SMEM_PER_SM // ctas_per_sm - SMEM_RESERVED_PER_CTA) // 4
+        i_chunk = next((ic for ic in range(DI, 0, -1)
+                        if words(warpgroups, ic) <= budget), 0)
+        if i_chunk:
+            break
+    else:
+        raise ValueError(f"DI={DI}, DK={DK}, HC={HC}, L={L}, K={K}: W, rbf "
+                         "and dW rows beyond the backward kernel's "
+                         f"{MAX_SMEM_PER_CTA} B of shared memory")
+    grid = min(N, BWD_SMS * ctas_per_sm)
+    return BwdPlan(grid=grid, threads=threads, warpgroups=warpgroups,
+                   channel_groups=HC // threads, i_chunk=i_chunk,
+                   smem_bytes=4 * words(warpgroups, i_chunk),
+                   ctas_per_sm=ctas_per_sm)
+
+
+def bwd_occupancy(plan: BwdPlan) -> dict:
+    """What the card gives the backward kernel under `plan`: registers and
+    local (spill) bytes per thread, static shared bytes, and resident CTAs
+    and warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = _library("blocked_attn_bwd")
+    info = (ctypes.c_int * 4)()
+    block = plan.threads * plan.warpgroups
+    err = lib.blocked_attn_bwd_occupancy(block, plan.smem_bytes, info)
+    _raise_on(lib, err, "blocked_attn_bwd_occupancy", str(plan))
+    return {"registers": info[0], "spill_bytes": info[1],
+            "static_smem_bytes": info[2], "dynamic_smem_bytes":
+            plan.smem_bytes, "ctas_per_sm": info[3],
+            "warps_per_sm": info[3] * block // 32}
+
+
 def blocked_attention_bwd(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids,
-                          g, heads: int, num_radial: int):
-    """(dq, dk, dv, de, dW, db) from g = d out: on CUDA tensors the
-    backward kernel (`blocked_attention_bwd_partials`) and the fixed-order
-    sum of its per-atom dW/db partials (`reduce_partials`); on CPU tensors
-    the plain version."""
+                          g, heads: int, num_radial: int, *, out):
+    """(dq, dk, dv, de, dW, db) from g = d out and the forward output
+    `out`: on CUDA tensors the backward kernel
+    (`blocked_attention_bwd_partials`) and the fixed-order sum of its
+    per-CTA dW/db partials (`reduce_partials`); on CPU tensors the plain
+    version."""
     if q.device.type == "cpu":
         return blocked_attention_bwd_plain(q, k, v, e_atom, rbf, w_sbf, bias,
                                            z, a_ids, b_ids, g, heads,
-                                           num_radial)
+                                           num_radial, out=out)
     dq, dk, dv, de, partial = blocked_attention_bwd_partials(
         q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids, g, heads,
-        num_radial)
+        num_radial, out=out)
     LKHC = w_sbf.numel()
     dwdb = reduce_partials(partial)
     return dq, dk, dv, de, dwdb[:LKHC].reshape(w_sbf.shape), dwdb[LKHC:]
@@ -234,56 +347,64 @@ def blocked_attention_bwd(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids,
 
 def blocked_attention_bwd_partials(q, k, v, e_atom, rbf, w_sbf, bias, z,
                                    a_ids, b_ids, g, heads: int,
-                                   num_radial: int):
+                                   num_radial: int, *, out):
     """The backward kernel alone, on CUDA tensors (counted in
     `blocked_attention_bwd_partials.launches`): (dq, dk, dv, de, partial),
-    with partial (N, (L*K+1)*HC) each atom's share of dW (row-major, L*K x
-    HC) followed by its share of db."""
+    with partial (bwd_plan(...).grid, (L*K+1)*HC) each CTA's share of dW
+    (row-major, L*K x HC) followed by its share of db."""
     if q.device.type != "cuda":
         raise ValueError(f"the backward kernel runs on CUDA tensors, got "
                          f"{q.device}")
-    if g.shape != q.shape or g.dtype != torch.float32 or g.device != q.device:
-        raise ValueError(f"g {tuple(g.shape)} {g.dtype} on {g.device} does "
-                         f"not match q {tuple(q.shape)}")
-    if not g.is_contiguous():
-        raise ValueError("g is not contiguous")
+    for name, t in (("g", g), ("out", out)):
+        if t.shape != q.shape or t.dtype != torch.float32 \
+                or t.device != q.device:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device} does not match q {tuple(q.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
     N, DI, HC = q.shape
     DK = k.shape[1]
     K = num_radial
     L = rbf.shape[-1] // K
+    plan = bwd_plan(N, DI, DK, HC, heads, L, K)
     lib = _library("blocked_attn_bwd")
     f32 = dict(dtype=torch.float32, device=q.device)
     dq = torch.empty((N, DI, HC), **f32)
     dk = torch.empty((N, DK, HC), **f32)
     dv = torch.empty((N, DK, HC), **f32)
     de = torch.empty((N, HC), **f32)
-    partial = torch.empty((N, (L * K + 1) * HC), **f32)
+    partial = torch.empty((plan.grid, (L * K + 1) * HC), **f32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.blocked_attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), e_atom.data_ptr(),
             rbf.data_ptr(), w_sbf.data_ptr(), bias.data_ptr(), z.data_ptr(),
-            a_ids.data_ptr(), b_ids.data_ptr(), g.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), de.data_ptr(), partial.data_ptr(),
-            N, DI, DK, heads, HC // heads, L, K, stream)
+            a_ids.data_ptr(), b_ids.data_ptr(), out.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), de.data_ptr(),
+            partial.data_ptr(), N, DI, DK, heads, HC // heads, L, K,
+            plan.grid, plan.threads, plan.warpgroups, plan.i_chunk,
+            plan.smem_bytes, stream)
     _raise_on(lib, err, "blocked_attn_bwd",
-              f"N={N}, DI={DI}, DK={DK}, HC={HC}, L={L}")
+              f"N={N}, DI={DI}, DK={DK}, HC={HC}, L={L}, K={K}, {plan}")
     blocked_attention_bwd_partials.launches += 1
     return dq, dk, dv, de, partial
 
 
 def reduce_partials(partial: torch.Tensor) -> torch.Tensor:
-    """Column sums of `partial` (rows, cols) float32 on CUDA: the reduce
-    kernel of blocked_attn_bwd.cu, whose summation order depends only on
-    the shape (counted in `reduce_partials.launches`)."""
+    """Column sums of `partial` (rows, cols) float32 on CUDA, cols a
+    multiple of 4: the reduce kernel of blocked_attn_bwd.cu, whose
+    summation order depends only on the shape (counted in
+    `reduce_partials.launches`)."""
     if partial.device.type != "cuda":
         raise ValueError(f"the reduce kernel runs on CUDA tensors, got "
                          f"{partial.device}")
     if partial.dim() != 2 or partial.dtype != torch.float32:
         raise ValueError(f"partial {tuple(partial.shape)} {partial.dtype} is "
                          "not a 2-D float32 tensor")
-    if not partial.is_contiguous():
-        raise ValueError("partial is not contiguous")
+    if not partial.is_contiguous() or partial.shape[1] % 4 \
+            or partial.data_ptr() % 16:
+        raise ValueError("partial is not contiguous, 16-byte aligned rows of "
+                         "a multiple of 4 columns")
     rows, cols = partial.shape
     lib = _library("blocked_attn_bwd")
     out = torch.empty(cols, dtype=torch.float32, device=partial.device)
@@ -297,22 +418,26 @@ def reduce_partials(partial: torch.Tensor) -> torch.Tensor:
 
 
 class _BlockedAttention(torch.autograd.Function):
-    """Saves the inputs; the backward recomputes the softmax from them, as
-    the reference's custom VJP does (the forward output is not saved)."""
+    """Saves the inputs and the forward output; the backward recomputes the
+    softmax from the inputs and reads inner(i,h) = sum_{c in h} g out from
+    the output (the reference's custom VJP recomputes the output instead,
+    to spare TPU memory: :235)."""
 
     @staticmethod
     def forward(ctx, q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids,
                 heads, num_radial):
+        out = blocked_attention_fwd(q, k, v, e_atom, rbf, w_sbf, bias, z,
+                                    a_ids, b_ids, heads, num_radial)
         ctx.save_for_backward(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids,
-                              b_ids)
+                              b_ids, out)
         ctx.heads, ctx.num_radial = heads, num_radial
-        return blocked_attention_fwd(q, k, v, e_atom, rbf, w_sbf, bias, z,
-                                     a_ids, b_ids, heads, num_radial)
+        return out
 
     @staticmethod
     def backward(ctx, g):
+        *inputs, out = ctx.saved_tensors
         dq, dk, dv, de, dw, db = blocked_attention_bwd(
-            *ctx.saved_tensors, g.contiguous(), ctx.heads, ctx.num_radial)
+            *inputs, g.contiguous(), ctx.heads, ctx.num_radial, out=out)
         # rbf, z (geometry), the ids, heads and num_radial get none
         return dq, dk, dv, de, None, dw, db, None, None, None, None, None
 
@@ -348,8 +473,10 @@ def _library(name: str) -> ctypes.CDLL:
         lib.blocked_attn_fwd.restype = i32
         lib.blocked_attn_error_string = lib.blocked_attn_fwd_error_string
     else:
-        lib.blocked_attn_bwd.argtypes = [ptr] * 16 + [i32] * 7 + [ptr]
+        lib.blocked_attn_bwd.argtypes = [ptr] * 17 + [i32] * 12 + [ptr]
         lib.blocked_attn_bwd.restype = i32
+        lib.blocked_attn_bwd_occupancy.argtypes = [i32, i32, ptr]
+        lib.blocked_attn_bwd_occupancy.restype = i32
         lib.blocked_attn_bwd_reduce.argtypes = [ptr, ptr, i32, i32, ptr]
         lib.blocked_attn_bwd_reduce.restype = i32
         lib.blocked_attn_error_string = lib.blocked_attn_bwd_error_string
