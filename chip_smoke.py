@@ -14,11 +14,13 @@ Phases, each of which raises on failure (exit code != 0):
      sm_90a, all started together;
   3. kernels vs plain versions at the serving shape (N=1024, D=24) and at
      a D>40 AID-scale shape (N=512, D=48), on real padded batches: the
-     forward (checked and timed), and the backward (all six gradients from
-     the forward kernel's output, bitwise equal across two runs, zeros at
-     dead rows) with its fixed-order reduce kernel (checked), the kernel
-     alone timed; each backward check prints the kernel's launch plan,
-     registers, spills, shared memory and resident warps per SM;
+     forward (bitwise equal across two runs, exact zeros at dead rows,
+     timed, with its launch plan, registers, spills and resident warps per
+     SM), and the backward (all six gradients from the checked forward
+     output, bitwise equal across two runs, zeros at dead rows) with its
+     fixed-order reduce kernel (checked), the kernel alone timed; each
+     backward check prints the kernel's launch plan, registers, spills,
+     shared memory and resident warps per SM;
   4. serving: the flagship model (4 layers, 128 channels, 16 heads, L=7,
      K=6, 338 edge features, random weights from a seeded generator)
      serves 256 QM9-scale molecules at batch 32, then 16 AID-scale
@@ -32,12 +34,16 @@ Phases, each of which raises on failure (exit code != 0):
      QM9-scale molecules at batch 32, counting forward, backward and
      reduce launches; one step at AID scale (batch 4, D>40); one step on
      8 molecules on the card against the same step on the CPU (loss and
-     every gradient); the backward and reduce kernels against their plain
-     versions again, and timed, at the shapes of the first batch of the
-     2-epoch run and of the AID-scale step, and checked on a rectangular
-     window (DI = 3/4 DK) cut from the first batch and with K=9 radial
-     functions on that batch (dW in shared memory); the reduce timed
-     against partial.sum(0) on the same partials;
+     every gradient); the forward, backward and reduce kernels against
+     their plain versions again at the shapes of the first batch of the
+     2-epoch run (all three timed) and of the AID-scale step (the
+     backward timed), and checked on a rectangular window (DI = 3/4 DK)
+     cut from the first batch, with K=9 radial functions on that batch
+     (dW in shared memory) and with HC=1024 (128 heads of 8) on its
+     geometry, a width whose shared memory the first forward kernel could
+     not lay out; the forward also at every other head width it takes
+     (C=1, 2, 4, 16, 32) on that batch; the reduce timed against
+     partial.sum(0) on the same partials;
   7. training times: ms per step (CUDA events around steps on cached
      batches) and training molecules/s per epoch.
 The line before the last is a JSON object {"kernels": [...]}; the last
@@ -126,24 +132,48 @@ def backlog_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def attention_work(args, heads: int, num_radial: int, out_bytes: int):
-    """(bytes, FP32 operations) the attention function needs on these
-    inputs: each input read once and the output written once; per valid
-    pair 2L+5 operations per channel (score product and sum, L FMAs of the
-    angular sum, message and accumulation), one exp per head and 4(L-2)
-    for the Legendre recurrence; 2*L*K per channel for G of each key that
-    takes part in a valid pair."""
+def valid_pairs(args):
+    """(N, DI, DK) bool: the (query, key) pairs of each atom that take part
+    in the attention."""
+    a_ids, b_ids = args[8], args[9]
+    return ((a_ids[:, :, None] != b_ids[:, None, :])
+            & (a_ids >= 0)[:, :, None] & (b_ids >= 0)[:, None, :])
+
+
+def live_input_bytes(args, valid, query_inputs=1):
+    """Bytes of the attention inputs that the function's value depends on
+    at these ids, each read once: the rows of q (and of `query_inputs` - 1
+    more (N, DI, HC) inputs) at query slots in a valid pair, the rows of k,
+    v and rbf at key slots in a valid pair, z at the valid pairs, e of the
+    atoms with a valid pair, and all of the ids, W and the bias. No other
+    row changes an output: a query slot without a valid pair gives 0."""
     q, k, v, e, rbf, w, bias, z, a_ids, b_ids = args
     HC = q.shape[-1]
-    L = rbf.shape[-1] // num_radial
-    valid = ((a_ids[:, :, None] != b_ids[:, None, :])
-             & (a_ids >= 0)[:, :, None] & (b_ids >= 0)[:, None, :])
+    q_rows = int(valid.any(dim=2).sum())
+    k_rows = int(valid.any(dim=1).sum())
+    atoms = int(valid.flatten(1).any(dim=1).sum())
+    words = (q_rows * HC * query_inputs + k_rows * (2 * HC + rbf.shape[-1])
+             + int(valid.sum()) + atoms * HC + a_ids.numel() + b_ids.numel()
+             + w.numel() + bias.numel())
+    return 4 * words
+
+
+def attention_work(args, heads: int, num_radial: int, out_bytes: int):
+    """(bytes, FP32 operations, valid pairs) the attention function needs
+    on these inputs: the live input rows read once (live_input_bytes) and
+    the whole output written once; per valid pair 2L+5 operations per
+    channel (score product and sum, L FMAs of the angular sum, message and
+    accumulation), one exp per head and 4(L-2) for the Legendre recurrence;
+    2*L*K per channel for G of each key that takes part in a valid
+    pair."""
+    HC = args[0].shape[-1]
+    L = args[4].shape[-1] // num_radial
+    valid = valid_pairs(args)
     n_pairs = int(valid.sum())
     n_keys = int(valid.any(dim=1).sum())
     ops = (n_pairs * (HC * (2 * L + 5) + heads + 4 * max(L - 2, 0))
            + n_keys * 2 * L * num_radial * HC)
-    nbytes = sum(t.numel() * t.element_size() for t in args) + out_bytes
-    return nbytes, ops, n_pairs
+    return live_input_bytes(args, valid) + out_bytes, ops, n_pairs
 
 
 def kernel_inputs(graphs, batch_size, cfg, device, seed):
@@ -180,50 +210,99 @@ def batch_kernel_inputs(batch, cfg, seed):
             normal(HC), geo.z, geo.a_ids, geo.b_ids)
 
 
-def check_kernel(tag, args, cfg):
-    """Kernel vs plain version on the card; returns its JSON record."""
+def fwd_occupancy_line(args, cfg):
+    """The forward kernel's launch plan at this shape, what the card gives
+    it and how the plan's walk (CTA r takes the atoms r, r + grid, ...)
+    spreads the valid pairs over the CTAs, as log lines; returns the
+    occupancy dict."""
+    import torch
+    from x2gnn_tpu_torch.ops.blocked_attn import fwd_occupancy, fwd_plan
+
+    N, DI, HC = args[0].shape
+    DK = args[1].shape[1]
+    plan = fwd_plan(N, DI, DK, HC, cfg.heads, cfg.sbf_dim, cfg.rbf_dim)
+    occ = fwd_occupancy(plan)
+    log(f"[fwd plan N={N} DI={DI} DK={DK} HC={HC}] grid {plan.grid} x "
+        f"{plan.channel_groups} CTAs of {plan.warpgroups} x {plan.threads} "
+        f"threads, {plan.ctas_per_sm} per SM planned, i_chunk "
+        f"{plan.i_chunk}, {plan.smem_bytes} B dynamic shared memory; "
+        f"{occ['registers']} registers, {occ['spill_bytes']} B spilled, "
+        f"{occ['static_smem_bytes']} B static shared; {occ['ctas_per_sm']} "
+        f"CTAs = {occ['warps_per_sm']} warps resident per SM")
+    per_atom = valid_pairs(args).sum(dim=(1, 2))
+    per_cta = per_atom.new_zeros(plan.grid).index_add_(
+        0, torch.arange(N, device=per_atom.device) % plan.grid, per_atom)
+    log(f"[fwd plan N={N} DI={DI} DK={DK} HC={HC}] valid pairs per CTA: "
+        f"max {int(per_cta.max())}, mean {float(per_cta.float().mean()):.1f}"
+        f"; per atom: max {int(per_atom.max())}")
+    return occ
+
+
+def check_fwd_kernel(tag, args, cfg, timed):
+    """Forward kernel vs plain version on the card: within KERNEL_RTOL /
+    KERNEL_ATOL, bitwise equal across two runs, exact zeros at dead query
+    rows. Returns (the kernel's output, its JSON record at this shape, or
+    None unless `timed`); timed prints the plan and occupancy line."""
     import torch
     from x2gnn_tpu_torch.ops.blocked_attn import (
-        blocked_attention, blocked_attention_plain)
+        blocked_attention_fwd, blocked_attention_plain)
 
     H, K = cfg.heads, cfg.rbf_dim
-    got = blocked_attention(*args, heads=H, num_radial=K)
+    N, DI, HC = args[0].shape
+    tag = f"{tag} N={N} DI={DI} DK={args[1].shape[1]} HC={HC}"
+    got = blocked_attention_fwd(*args, heads=H, num_radial=K)
+    again = blocked_attention_fwd(*args, heads=H, num_radial=K)
     ref = blocked_attention_plain(*args, heads=H, num_radial=K)
     torch.cuda.synchronize()
     err = (got - ref).abs()
     max_abs = float(err.max())
     max_rel = float((err / ref.abs().clamp(min=1e-30)).max())
     bad = int((err > KERNEL_ATOL + KERNEL_RTOL * ref.abs()).sum())
-    N, DI, HC = args[0].shape
-    log(f"[kernel {tag}] N={N} DI={DI} DK={args[1].shape[1]} HC={HC}: "
-        f"max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
+    log(f"[fwd {tag}] max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
         f"(|ref| max {float(ref.abs().max()):.3e}), "
         f"{bad} elements outside atol={KERNEL_ATOL} rtol={KERNEL_RTOL}")
     if not torch.isfinite(got).all():
-        raise AssertionError(f"kernel {tag}: non-finite output")
+        raise AssertionError(f"fwd {tag}: non-finite output")
     if bad:
-        raise AssertionError(f"kernel {tag}: {bad} elements disagree with "
+        raise AssertionError(f"fwd {tag}: {bad} elements disagree with "
                              "the plain version")
-    ms = median_ms(lambda: blocked_attention(*args, heads=H, num_radial=K))
-    plain_ms = median_ms(
-        lambda: blocked_attention_plain(*args, heads=H, num_radial=K))
+    if not torch.equal(got, again):
+        raise AssertionError(f"fwd {tag}: two runs differ")
+    dead = args[8] < 0
+    if (got[dead] != 0).any():
+        raise AssertionError(f"fwd {tag}: a dead query row is not 0")
+    log(f"[fwd {tag}] two runs bitwise equal; {int(dead.sum())} dead query "
+        "rows exactly 0")
+    # the kernel's calls queued behind a sleep kernel: device time back to
+    # back, not the host's time to check, plan and launch
+    ms = backlog_ms(lambda: blocked_attention_fwd(*args, heads=H,
+                                                  num_radial=K))
     nbytes, ops, n_pairs = attention_work(args, H, K, got.numel() * 4)
     bound_ms, bound_by, t_bytes, t_ops = bound(nbytes, ops)
-    log(f"[kernel {tag}] kernel {ms:.4f} ms/launch, plain {plain_ms:.4f} "
+    if not timed:
+        log(f"[fwd {tag}] kernel {ms:.4f} ms/launch over {n_pairs} valid "
+            f"pairs ({ms / bound_ms:.1f}x its bound)")
+        return got, None
+    occ = fwd_occupancy_line(args, cfg)
+    plain_ms = median_ms(
+        lambda: blocked_attention_plain(*args, heads=H, num_radial=K))
+    log(f"[fwd {tag}] kernel {ms:.4f} ms/launch, plain {plain_ms:.4f} "
         f"ms; {nbytes} bytes ({t_bytes:.4f} ms at 3.35 TB/s), {ops} FP32 "
-        f"ops over {n_pairs} valid pairs ({t_ops:.4f} ms at 67 TFLOP/s)")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "max_abs_err": max_abs,
-            "library_ms": None}
+        f"ops over {n_pairs} valid pairs ({t_ops:.4f} ms at 67 TFLOP/s); "
+        f"{ms / bound_ms:.1f}x its bound")
+    return got, {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "max_abs_err": max_abs,
+                 "library_ms": None, "warps_per_sm": occ["warps_per_sm"]}
 
 
 def attention_bwd_work(args, g, out, heads: int, num_radial: int):
     """(bytes, bytes of `out`, FP32 operations, valid pairs) of the
-    attention backward on these inputs. The bytes the function needs: each
-    input and g read once, each gradient (dq, dk, dv, de, dW, db) written
-    once; the kernel also reads the saved forward output `out`, which it
-    reads instead of recomputing it, counted apart. Per valid pair 4L+17
-    operations per channel (score
+    attention backward on these inputs. The bytes the function needs: the
+    live rows of the inputs and of g read once (live_input_bytes, g beside
+    q), each gradient (dq, dk, dv, de, dW, db) written whole once; the
+    kernel also reads the saved forward output `out` at the live query
+    rows, which it reads instead of recomputing it, counted apart. Per
+    valid pair 4L+17 operations per channel (score
     product and sum, the L FMAs of s, ds, dv, dalpha, dq and dk FMAs, the L
     FMAs of dG, db), 6 per head (exp, alpha, inner, dscore) and 4(L-2) for
     the Legendre recurrence; per key in a valid pair 4*L*K per channel (G
@@ -231,16 +310,16 @@ def attention_bwd_work(args, g, out, heads: int, num_radial: int):
     q, k, v, e, rbf, w, bias, z, a_ids, b_ids = args
     HC = q.shape[-1]
     L = rbf.shape[-1] // num_radial
-    valid = ((a_ids[:, :, None] != b_ids[:, None, :])
-             & (a_ids >= 0)[:, :, None] & (b_ids >= 0)[:, None, :])
+    valid = valid_pairs(args)
     n_pairs = int(valid.sum())
     n_keys = int(valid.any(dim=1).sum())
     ops = (n_pairs * (HC * (4 * L + 17) + 6 * heads + 4 * max(L - 2, 0))
            + n_keys * 4 * L * num_radial * HC)
     grads = [q, k, v, e, w, bias]          # dq, dk, dv, de, dW, db
-    nbytes = (sum(t.numel() * t.element_size() for t in (*args, g))
+    nbytes = (live_input_bytes(args, valid, query_inputs=2)
               + sum(t.numel() * 4 for t in grads))
-    return nbytes, out.numel() * out.element_size(), ops, n_pairs
+    out_bytes = int(valid.any(dim=2).sum()) * HC * out.element_size()
+    return nbytes, out_bytes, ops, n_pairs
 
 
 def bound(nbytes, ops):
@@ -275,9 +354,10 @@ def bwd_occupancy_line(args, cfg):
     return occ
 
 
-def check_bwd_kernel(tag, args, cfg, seed, timed):
+def check_bwd_kernel(tag, args, cfg, seed, timed, out):
     """Backward kernel and its reduce vs the plain version on the card, for
-    g from a seeded generator and the forward kernel's output: all six
+    g from a seeded generator and `out`, the checked output of the forward
+    kernel on `args`: all six
     gradients, bitwise equal across two runs, exact zeros at dead rows,
     the reduce against a float64 sum of the kernel's own partials, and
     the kernel alone timed. With `timed`, returns the JSON records of the
@@ -289,12 +369,11 @@ def check_bwd_kernel(tag, args, cfg, seed, timed):
     import torch
     from x2gnn_tpu_torch.ops.blocked_attn import (
         blocked_attention_bwd, blocked_attention_bwd_partials,
-        blocked_attention_bwd_plain, blocked_attention_fwd, reduce_partials)
+        blocked_attention_bwd_plain, reduce_partials)
 
     H, K = cfg.heads, cfg.rbf_dim
     g = torch.from_numpy(np.random.default_rng(seed).normal(
         size=tuple(args[0].shape)).astype(np.float32)).to(args[0].device)
-    out = blocked_attention_fwd(*args, heads=H, num_radial=K)
     tag = (f"{tag} N={args[0].shape[0]} DI={args[0].shape[1]} "
            f"DK={args[1].shape[1]}")
     occ = bwd_occupancy_line(args, cfg)
@@ -381,6 +460,21 @@ def check_bwd_kernel(tag, args, cfg, seed, timed):
     reduce = {"ms": r_ms, "plain_ms": r_plain, "bound_ms": r_bound,
               "bound_by": r_by, "max_abs_err": red_err, "library_ms": r_plain}
     return bwd, reduce
+
+
+def check_window(tag, args, cfg, seed, fwd_timed=False, bwd_timed=False):
+    """The forward kernel checked on `args`, then the backward from its
+    output; returns (forward record, backward records), each None unless
+    timed."""
+    out, fwd = check_fwd_kernel(tag, args, cfg, fwd_timed)
+    return fwd, check_bwd_kernel(tag, args, cfg, seed, bwd_timed, out)
+
+
+def first_atoms(args, n):
+    """The first n atom rows of attention inputs (W and the bias stay)."""
+    q, k, v, e, rbf, w, bias, z, a_ids, b_ids = args
+    return (q[:n], k[:n], v[:n], e[:n], rbf[:n], w, bias, z[:n], a_ids[:n],
+            b_ids[:n])
 
 
 def rect_window(args, di, dk):
@@ -628,12 +722,11 @@ def main() -> int:
     if aid_args[1].shape[1] <= 40:
         raise AssertionError(f"AID-scale shape {aid_args[1].shape} is not "
                              "D > 40")
-    records = {
-        "serving": check_kernel("serving D=24", serving_args, cfg),
-        "aid": check_kernel(f"AID D={aid_args[1].shape[1]}", aid_args, cfg),
-    }
-    check_bwd_kernel("serving", serving_args, cfg, seed=21, timed=False)
-    check_bwd_kernel("AID", aid_args, cfg, seed=22, timed=False)
+    records = {}
+    records["serving"], _ = check_window("serving", serving_args, cfg,
+                                         seed=21, fwd_timed=True)
+    records["aid"], _ = check_window("AID", aid_args, cfg, seed=22,
+                                     fwd_timed=True)
 
     # ---- 4. serving ----
     model = X2GNN(cfg, torch.Generator().manual_seed(0), device=device)
@@ -691,27 +784,43 @@ def main() -> int:
         raise AssertionError(f"AID-scale training batch "
                              f"{tuple(aid_batch.in_edges.shape)} is not D > 40")
     check_step_on_card_and_cpu(mcfg, qm9[:8], device)
-    # the backward and reduce kernels against their plain versions, and
-    # timed, at the shapes training gave them: the first batch of each run
+    # the forward, backward and reduce kernels against their plain
+    # versions, and timed, at the shapes training gave them: the first
+    # batch of each run
     train_batch = trainer.batches(trainer.train_idx)[0]
     train_args = batch_kernel_inputs(train_batch, mcfg, seed=23)
-    records["bwd"], records["reduce"] = check_bwd_kernel(
-        "train", train_args, mcfg, seed=24, timed=True)
+    records["fwd_train"], (records["bwd"], records["reduce"]) = check_window(
+        "train", train_args, mcfg, seed=24, fwd_timed=True, bwd_timed=True)
     # a rectangular window (DI != DK) cut from the same real batch, as
-    # degree tiers will give the kernel
+    # degree tiers will give the kernels
     n_slots = train_args[0].shape[1]
-    check_bwd_kernel("train rect", rect_window(train_args, n_slots * 3 // 4,
-                                               n_slots), mcfg, seed=27,
-                     timed=False)
-    # K = 9 radial functions, beyond the kernel's 6 in registers: dW in
+    check_window("train rect", rect_window(train_args, n_slots * 3 // 4,
+                                           n_slots), mcfg, seed=27)
+    # K = 9 radial functions, beyond the backward's 6 in registers: dW in
     # shared memory, on the same batch
     cfg_k9 = dataclasses.replace(mcfg, rbf_dim=9)
-    check_bwd_kernel("train K=9", batch_kernel_inputs(train_batch, cfg_k9,
-                                                      seed=28),
-                     cfg_k9, seed=29, timed=False)
-    records["bwd_aid"], _ = check_bwd_kernel(
+    check_window("train K=9", batch_kernel_inputs(train_batch, cfg_k9,
+                                                  seed=28), cfg_k9, seed=29)
+    # HC = 1024 (128 heads of 8) on the same geometry: 8 channel groups
+    # along grid.y; the first forward kernel's shared memory grew with HC
+    # and refused this width. The backward on its first 256 atoms, which
+    # keeps the plain version's (N, D, D, HC) tensors to ~1 GB each.
+    cfg_wide = dataclasses.replace(mcfg, in_channels=1024, heads=128)
+    wide_args = batch_kernel_inputs(train_batch, cfg_wide, seed=30)
+    check_fwd_kernel("train HC=1024", wide_args, cfg_wide, timed=False)
+    check_window("train HC=1024", first_atoms(wide_args, 256), cfg_wide,
+                 seed=31)
+    del wide_args
+    # every other head width the kernel takes, on the same batch: C = 1, 2
+    # (scalar scores), 4, 16, 32 (16-byte loads), beside the flagship's 8
+    for heads in (128, 64, 32, 8, 4):
+        cfg_c = dataclasses.replace(mcfg, heads=heads)
+        check_fwd_kernel(f"train C={mcfg.in_channels // heads}",
+                         batch_kernel_inputs(train_batch, cfg_c, seed=32),
+                         cfg_c, timed=False)
+    _, (records["bwd_aid"], _) = check_window(
         "train AID", batch_kernel_inputs(aid_batch, mcfg, seed=25), mcfg,
-        seed=26, timed=True)
+        seed=26, bwd_timed=True)
 
     # ---- 7. training times ----
     ms, state = step_ms(trainer, state)
@@ -721,6 +830,9 @@ def main() -> int:
         f"molecules/s per epoch (wall clock, incl. eval and checkpoints): "
         + ", ".join(f"epoch {r['epoch']} {r['molecules_per_sec']:.1f}"
                     for r in train_records))
+    log(f"[train] forward kernel {records['fwd_train']['ms']:.4f} ms per "
+        f"launch at N={n}, D={d} ({records['fwd_train']['warps_per_sm']} "
+        "resident warps per SM)")
     log(f"[train] backward kernel {records['bwd']['ms']:.4f} ms per launch"
         f" at N={n}, D={d} (with the reduce "
         f"{records['bwd']['ms_with_reduce']:.4f} ms, "
@@ -737,6 +849,9 @@ def main() -> int:
         {"name": "blocked_attn_fwd (D>40)", "route": "cuda",
          "source": fwd_src, "replaces": f"{PALLAS}:282",
          "launches": launches_aid, **records["aid"]},
+        {"name": "blocked_attn_fwd (training)", "route": "cuda",
+         "source": fwd_src, "replaces": f"{PALLAS}:166",
+         "launches": train_counts["fwd"], **records["fwd_train"]},
         {"name": "blocked_attn_bwd", "route": "cuda", "source": bwd_src,
          "replaces": f"{PALLAS}:198", "launches": train_counts["bwd"],
          **records["bwd"]},

@@ -3,9 +3,10 @@ x2gnn_tpu/ops/pallas/blocked_attn.py).
 
 `blocked_attention` is a `torch.autograd.Function` that saves its
 output for the backward. On CUDA tensors its forward launches the
-hand-written kernel of `csrc/blocked_attn_fwd.cu` and its backward those
-of `csrc/blocked_attn_bwd.cu` (the gradient kernel, laid out by
-`bwd_plan`, then a fixed-order sum of its per-CTA dW/db partials); on CPU
+hand-written kernel of `csrc/blocked_attn_fwd.cu` (laid out by
+`fwd_plan`) and its backward those of `csrc/blocked_attn_bwd.cu` (the
+gradient kernel, laid out by `bwd_plan`, then a fixed-order sum of its
+per-CTA dW/db partials); on CPU
 tensors both run the plain PyTorch versions `blocked_attention_plain` and
 `blocked_attention_bwd_plain`. All take the un-expanded sbf weight
 `w_sbf` (L*K, HC); the reference's kernel takes its block-diagonal
@@ -37,7 +38,7 @@ import torch
 
 _NEG = -1e30
 MAX_DEGREE = 64   # the kernels' largest DI and DK
-MAX_L = 8         # the backward kernel keeps L values of G and dG per thread
+MAX_L = 8         # the kernels keep L values of G (and dG) per thread
 REG_K = 6         # K whose dW the backward kernel keeps in registers
 
 
@@ -185,7 +186,9 @@ def _check(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids, heads,
     if 32 % C or HC % 32 or HC > 1024:
         raise ValueError(f"H={heads}, C={C}: the kernels need C dividing 32 "
                          "and HC a multiple of 32 up to 1024")
-    bwd_plan(N, DI, DK, HC, heads, L, K)   # raises on what it cannot lay out
+    # each raises on what its kernel cannot lay out
+    fwd_plan(N, DI, DK, HC, heads, L, K)
+    bwd_plan(N, DI, DK, HC, heads, L, K)
 
 
 def _raise_on(lib, err, name, shape):
@@ -196,14 +199,17 @@ def _raise_on(lib, err, name, shape):
 
 def blocked_attention_fwd(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids,
                           heads: int, num_radial: int) -> torch.Tensor:
-    """The forward: the CUDA kernel on CUDA tensors (counted in
-    `blocked_attention.launches`), the plain version on CPU tensors."""
+    """The forward: the CUDA kernel on CUDA tensors, laid out by
+    `fwd_plan` (counted in `blocked_attention.launches`; `out` from
+    torch.empty, every slot of which the kernel writes), the plain version
+    on CPU tensors."""
     if q.device.type == "cpu":
         return blocked_attention_plain(q, k, v, e_atom, rbf, w_sbf, bias, z,
                                        a_ids, b_ids, heads, num_radial)
     N, DI, HC = q.shape
     DK = k.shape[1]
     L = rbf.shape[-1] // num_radial
+    plan = fwd_plan(N, DI, DK, HC, heads, L, num_radial)
     lib = _library("blocked_attn_fwd")
     out = torch.empty((N, DI, HC), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -212,39 +218,62 @@ def blocked_attention_fwd(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), e_atom.data_ptr(),
             rbf.data_ptr(), w_sbf.data_ptr(), bias.data_ptr(), z.data_ptr(),
             a_ids.data_ptr(), b_ids.data_ptr(), out.data_ptr(),
-            N, DI, DK, heads, HC // heads, L, num_radial, stream)
+            N, DI, DK, heads, HC // heads, L, num_radial, plan.grid,
+            plan.threads, plan.warpgroups, plan.i_chunk, plan.smem_bytes,
+            stream)
     _raise_on(lib, err, "blocked_attn_fwd",
-              f"N={N}, DI={DI}, DK={DK}, HC={HC}, L={L}")
+              f"N={N}, DI={DI}, DK={DK}, HC={HC}, L={L}, {plan}")
     blocked_attention.launches += 1
     return out
 
 
-# The backward kernel's launch plan. A CTA is `warpgroups` warpgroups (4,
-# fewer for windows of fewer than 4 keys) of up to 128 threads, which split
-# each atom's keys: 16 warps on an SM. Its shared memory is sized so that
-# 4 // warpgroups CTAs fit on one SM of an H100 (228 KB of shared memory
-# per SM, 1 KB of it reserved per CTA; 227 KB at most for one CTA); where
-# that does not fit (K > REG_K keeps dW in shared memory, L*K rows per
-# warpgroup), one CTA per SM with as many warpgroups as fit. The grid is at
-# most 132 SMs x those CTAs, persistent: a constant, so the plan and the
-# order of dW/db's sums depend on the shape alone, never on the card the
-# kernel runs on.
+# Launch plans of both kernels. A CTA is `warpgroups` warpgroups (4, fewer
+# for windows of fewer than 4 keys) of up to 128 threads, one per channel of
+# a group (heads never straddle a group; a wider HC is more CTAs along
+# grid.y), which split each atom's keys: 16 warps on an SM. Its shared
+# memory is sized so that 4 // warpgroups CTAs fit on one SM of an H100
+# (228 KB of shared memory per SM, 1 KB of it reserved per CTA; 227 KB at
+# most for one CTA), the atom's valid queries in chunks of `i_chunk`; where
+# that does not fit even for one query, one CTA per SM with as many
+# warpgroups as fit. The grid is at most 132 SMs x those CTAs, persistent:
+# a constant, so the plan and the order of every sum depend on the shape
+# alone, never on the card the kernel runs on.
 SMEM_PER_SM = 233472
 SMEM_RESERVED_PER_CTA = 1024
 MAX_SMEM_PER_CTA = 232448
-BWD_SMS = 132
-BWD_WARPGROUPS_PER_SM = 4
+PLAN_SMS = 132
+WARPGROUPS_PER_SM = 4
+
+
+def _up4(words):     # shared-memory regions start 16-byte aligned
+    return -(-words // 4) * 4
+
+
+def _plan_shape(kernel, N, DI, DK, HC, heads, L, K):
+    """Raise ValueError on a shape the named kernel does not take; else
+    return (C, threads): the head width and the channels of a
+    warpgroup."""
+    C = HC // heads if heads > 0 else 0
+    if not (N >= 1 and 1 <= DI <= MAX_DEGREE and 1 <= DK <= MAX_DEGREE):
+        raise ValueError(f"N={N}, DI={DI}, DK={DK}: the {kernel} kernel "
+                         f"takes N >= 1 and DI, DK in 1..{MAX_DEGREE}")
+    if heads <= 0 or HC % heads or C < 1 or 32 % C or HC % 32 or HC > 1024:
+        raise ValueError(f"HC={HC}, heads={heads}: the {kernel} kernel needs "
+                         "C dividing 32 and HC a multiple of 32 up to 1024")
+    if not (1 <= L <= MAX_L and K >= 1):
+        raise ValueError(f"L={L}, K={K}: the {kernel} kernel takes L in "
+                         f"1..{MAX_L} and K >= 1")
+    return C, next(t for t in (128, 96, 64, 32) if HC % t == 0)
 
 
 @dataclasses.dataclass(frozen=True)
-class BwdPlan:
-    """Launch plan of the backward kernel: `grid` persistent CTAs of
-    `warpgroups` x `threads` threads (each warpgroup one thread per channel
-    of a group of `threads` channels and its share of the keys;
-    `channel_groups` groups along grid.y), CTA r walking the atoms r,
-    r + grid, ..., the valid queries of an atom in chunks of `i_chunk`,
-    with `smem_bytes` of dynamic shared memory, `ctas_per_sm` of them
-    sized to fit on one SM."""
+class LaunchPlan:
+    """Launch plan of a kernel: `grid` persistent CTAs of `warpgroups` x
+    `threads` threads (each warpgroup one thread per channel of a group of
+    `threads` channels and its share of the keys; `channel_groups` groups
+    along grid.y), CTA r walking the atoms r, r + grid, ..., the valid
+    queries of an atom in chunks of `i_chunk`, with `smem_bytes` of dynamic
+    shared memory, `ctas_per_sm` of them sized to fit on one SM."""
     grid: int
     threads: int
     warpgroups: int
@@ -254,27 +283,65 @@ class BwdPlan:
     ctas_per_sm: int
 
 
+def _plan(kernel, words, N, DI, DK, HC, L, K, threads) -> LaunchPlan:
+    """The first (warpgroups, CTAs per SM) whose `words(wg, ic)` fit, with
+    the largest query chunk ic: 4 // wg CTAs of wg = min(4, DK) warpgroups
+    per SM, else one CTA of as many warpgroups as fit."""
+    wg0 = min(WARPGROUPS_PER_SM, DK)
+    for warpgroups, ctas_per_sm in (
+            [(wg0, WARPGROUPS_PER_SM // wg0)]
+            + [(wg, 1) for wg in range(wg0, 0, -1)]):
+        budget = (SMEM_PER_SM // ctas_per_sm - SMEM_RESERVED_PER_CTA) // 4
+        i_chunk = next((ic for ic in range(DI, 0, -1)
+                        if words(warpgroups, ic) <= budget), 0)
+        if i_chunk:
+            return LaunchPlan(
+                grid=min(N, PLAN_SMS * ctas_per_sm), threads=threads,
+                warpgroups=warpgroups, channel_groups=HC // threads,
+                i_chunk=i_chunk, smem_bytes=4 * words(warpgroups, i_chunk),
+                ctas_per_sm=ctas_per_sm)
+    raise ValueError(f"DI={DI}, DK={DK}, HC={HC}, L={L}, K={K}: W and rbf "
+                     f"rows beyond the {kernel} kernel's {MAX_SMEM_PER_CTA} B "
+                     "of shared memory")
+
+
+def fwd_plan(N: int, DI: int, DK: int, HC: int, heads: int, L: int,
+             K: int) -> LaunchPlan:
+    """The forward kernel's launch plan for a shape; raises ValueError on
+    a shape the kernel does not take. blocked_attn_fwd (the C entry point)
+    checks the plan again."""
+    C, threads = _plan_shape("forward", N, DI, DK, HC, heads, L, K)
+    hb, LK = threads // C, L * K
+
+    # 4-byte words, as make_layout in csrc/blocked_attn_fwd.cu: per CTA the
+    # compacted slots and atom ids, the L prefactors, 8 words of counts and
+    # masks, W's columns and the atom's rbf rows (each order's K values
+    # padded to a multiple of 4) and k + e rows; per chunk of queries their
+    # q rows, an output partial per warpgroup, the scores then exps (DK x
+    # heads), pref_l P_l (DK x 8) and 1/denominator (heads).
+    def words(wg, ic):
+        fixed = (2 * _up4(DI) + 2 * _up4(DK) + MAX_L + 8 + LK * threads
+                 + DK * L * _up4(K) + DK * threads)
+        return fixed + ((1 + wg) * ic * threads + _up4(ic * DK * hb)
+                        + ic * DK * MAX_L + _up4(ic * hb))
+
+    return _plan("forward", words, N, DI, DK, HC, L, K, threads)
+
+
+def fwd_occupancy(plan: LaunchPlan) -> dict:
+    """What the card gives the forward kernel under `plan` (as
+    `bwd_occupancy`)."""
+    return _occupancy("blocked_attn_fwd", plan)
+
+
 def bwd_plan(N: int, DI: int, DK: int, HC: int, heads: int, L: int,
-             K: int) -> BwdPlan:
+             K: int) -> LaunchPlan:
     """The backward kernel's launch plan for a shape; raises ValueError on
     a shape the kernel does not take. blocked_attn_bwd (the C entry point)
     checks the plan again."""
-    C = HC // heads if heads > 0 else 0
-    if not (N >= 1 and 1 <= DI <= MAX_DEGREE and 1 <= DK <= MAX_DEGREE):
-        raise ValueError(f"N={N}, DI={DI}, DK={DK}: the backward kernel "
-                         f"takes N >= 1 and DI, DK in 1..{MAX_DEGREE}")
-    if heads <= 0 or HC % heads or C < 1 or 32 % C or HC % 32 or HC > 1024:
-        raise ValueError(f"HC={HC}, heads={heads}: the backward kernel needs "
-                         "C dividing 32 and HC a multiple of 32 up to 1024")
-    if not (1 <= L <= MAX_L and K >= 1):
-        raise ValueError(f"L={L}, K={K}: the backward kernel takes L in "
-                         f"1..{MAX_L} and K >= 1")
-    threads = next(t for t in (128, 96, 64, 32) if HC % t == 0)
+    C, threads = _plan_shape("backward", N, DI, DK, HC, heads, L, K)
     hb = threads // C
     LK = L * K
-
-    def up4(words):     # regions start 16-byte aligned
-        return -(-words // 4) * 4
 
     # 4-byte words, as make_layout in csrc/blocked_attn_bwd.cu: per CTA the
     # compacted slots and atom ids, the L prefactors, 8 words of counts and
@@ -284,42 +351,29 @@ def bwd_plan(N: int, DI: int, DK: int, HC: int, heads: int, L: int,
     # inner (heads). The chunk's region also holds the final dW/db
     # reduction, (L*K + 1) rows.
     def words(wg, ic):
-        fixed = (2 * up4(DI) + 2 * up4(DK) + MAX_L + 8 + wg * threads
-                 + LK * threads + up4(DK * LK)
+        fixed = (2 * _up4(DI) + 2 * _up4(DK) + MAX_L + 8 + wg * threads
+                 + LK * threads + _up4(DK * LK)
                  + (wg * LK * threads if K > REG_K else 0))
-        chunk = ((2 + wg) * ic * threads + up4(ic * DK * hb)
-                 + ic * DK * MAX_L + up4(ic * hb))
+        chunk = ((2 + wg) * ic * threads + _up4(ic * DK * hb)
+                 + ic * DK * MAX_L + _up4(ic * hb))
         return fixed + max(chunk, (LK + 1) * threads)
 
-    wg0 = min(BWD_WARPGROUPS_PER_SM, DK)
-    for warpgroups, ctas_per_sm in (
-            [(wg0, BWD_WARPGROUPS_PER_SM // wg0)]
-            + [(wg, 1) for wg in range(wg0, 0, -1)]):
-        budget = (SMEM_PER_SM // ctas_per_sm - SMEM_RESERVED_PER_CTA) // 4
-        i_chunk = next((ic for ic in range(DI, 0, -1)
-                        if words(warpgroups, ic) <= budget), 0)
-        if i_chunk:
-            break
-    else:
-        raise ValueError(f"DI={DI}, DK={DK}, HC={HC}, L={L}, K={K}: W, rbf "
-                         "and dW rows beyond the backward kernel's "
-                         f"{MAX_SMEM_PER_CTA} B of shared memory")
-    grid = min(N, BWD_SMS * ctas_per_sm)
-    return BwdPlan(grid=grid, threads=threads, warpgroups=warpgroups,
-                   channel_groups=HC // threads, i_chunk=i_chunk,
-                   smem_bytes=4 * words(warpgroups, i_chunk),
-                   ctas_per_sm=ctas_per_sm)
+    return _plan("backward", words, N, DI, DK, HC, L, K, threads)
 
 
-def bwd_occupancy(plan: BwdPlan) -> dict:
+def bwd_occupancy(plan: LaunchPlan) -> dict:
     """What the card gives the backward kernel under `plan`: registers and
     local (spill) bytes per thread, static shared bytes, and resident CTAs
     and warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    lib = _library("blocked_attn_bwd")
+    return _occupancy("blocked_attn_bwd", plan)
+
+
+def _occupancy(name: str, plan) -> dict:
+    lib = _library(name)
     info = (ctypes.c_int * 4)()
     block = plan.threads * plan.warpgroups
-    err = lib.blocked_attn_bwd_occupancy(block, plan.smem_bytes, info)
-    _raise_on(lib, err, "blocked_attn_bwd_occupancy", str(plan))
+    err = getattr(lib, f"{name}_occupancy")(block, plan.smem_bytes, info)
+    _raise_on(lib, err, f"{name}_occupancy", str(plan))
     return {"registers": info[0], "spill_bytes": info[1],
             "static_smem_bytes": info[2], "dynamic_smem_bytes":
             plan.smem_bytes, "ctas_per_sm": info[3],
@@ -469,8 +523,10 @@ def _library(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "blocked_attn_fwd":
-        lib.blocked_attn_fwd.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
+        lib.blocked_attn_fwd.argtypes = [ptr] * 11 + [i32] * 12 + [ptr]
         lib.blocked_attn_fwd.restype = i32
+        lib.blocked_attn_fwd_occupancy.argtypes = [i32, i32, ptr]
+        lib.blocked_attn_fwd_occupancy.restype = i32
         lib.blocked_attn_error_string = lib.blocked_attn_fwd_error_string
     else:
         lib.blocked_attn_bwd.argtypes = [ptr] * 17 + [i32] * 12 + [ptr]

@@ -28,11 +28,14 @@
 //
 // Bound at the training shape (flagship X2GNN, 32 QM9-scale molecules,
 // N=760, DI=DK=32, H=16, C=8, L=7, K=6), counted as chip_smoke.py counts
-// it: each input (q, k, v, e, rbf, W, bias, z, ids) and g read once and
-// each gradient written once, 95.4 MB, 0.0285 ms at 3.35 TB/s (reading
-// the saved forward output, as this design does instead of recomputing
-// it, adds 12.5 MB: 0.0322 ms); the FP32 operations of its ~75k valid
-// pairs, 0.009 ms at 67 TFLOP/s. So it is bound by bytes, and what held
+// it: the input rows the gradients depend on read once (q and g at query
+// slots in a valid pair, k, v and rbf at key slots in a valid pair, z at
+// valid pairs, e of atoms with one, all ids, W and bias; about 27% of the
+// padded rows) and each gradient written whole once, 52.9 MB, 0.0158 ms
+// at 3.35 TB/s (reading the saved forward output's live rows, as this
+// design does instead of recomputing it, adds 3.3 MB: 0.0168 ms); the
+// FP32 operations of its ~75k valid pairs, 0.009 ms at 67 TFLOP/s. So it
+// is bound by bytes, and what held
 // the first design (1.593 ms on an H100 80GB HBM3 at 700 W) far from that
 // bound was latency: one CTA of 4 warps per
 // SM (119 KB of shared memory per atom), long dependent chains per pair
@@ -76,8 +79,9 @@
 //   thread over 32 row lanes, in 8-column CTAs: 172 CTAs for HC=128,
 //   L*K=42.
 // Measured by chip_smoke.py on "NVIDIA H100 80GB HBM3, 700.00 W": 0.2676
-// ms per launch at N=760, D=32 (9.4x its 0.0285 ms bound; the first
-// design 1.5930) and 0.4801 ms at N=328, D=48 (25.7x its 0.0187 ms bound;
+// ms per launch at N=760, D=32 (16.9x its 0.0158 ms bound; the first
+// design 1.5930) and 0.4801 ms at N=328, D=48 (37.0x its 0.0130 ms bound,
+// set there by the operations;
 // the first design 3.2393), 0.4258 ms at N=760, D=32 with K=9 (dW in
 // shared memory); 16 resident warps per SM, 128 registers with 8 bytes of
 // local memory per thread; the reduce 0.0032 ms on 132 x 5,504 partials,
