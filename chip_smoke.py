@@ -29,23 +29,37 @@ Phases, each of which raises on failure (exit code != 0):
   5. serving times: kernel and plain version per launch (CUDA events,
      median of 30 after warm-up) and throughput in molecules/s including
      host batching;
-  6. training: Trainer.fit, 2 epochs of the flagship recipe
-     (runs/flagship_r5_regression/args.json with pack_mixed off) over 512
-     QM9-scale molecules at batch 32, counting forward, backward and
-     reduce launches; one step at AID scale (batch 4, D>40); one step on
-     8 molecules on the card against the same step on the CPU (loss and
-     every gradient); the forward, backward and reduce kernels against
-     their plain versions again at the shapes of the first batch of the
-     2-epoch run (all three timed) and of the AID-scale step (the
-     backward timed), and checked on a rectangular window (DI = 3/4 DK)
-     cut from the first batch, with K=9 radial functions on that batch
-     (dW in shared memory) and with HC=1024 (128 heads of 8) on its
-     geometry, a width whose shared memory the first forward kernel could
-     not lay out; the forward also at every other head width it takes
-     (C=1, 2, 4, 16, 32) on that batch; the reduce timed against
-     partial.sum(0) on the same partials;
+  6. training: Trainer.fit, 2 epochs of the flagship recipe as written
+     (runs/flagship_r5_regression/args.json: pack_mixed, i.e. mixed-FFD
+     packed batches, degree-sorted, one attention launch per degree
+     tier) over 512 QM9-scale molecules at batch 32, then the same recipe
+     on fixed budgets (pad_budget_for, also tiered) and on fixed budgets
+     without split and tiers (Trainer(budgets=...), one window per conv),
+     each counting forward, backward and reduce launches against
+     conv_layers x the attention windows of its steps and eval batches;
+     one step at AID scale (batch 4, a first tier with DK>40) with its
+     tiers and as one window; one step on 8 molecules, a tiered batch, on
+     the card against the same step on the CPU (loss and every gradient);
+     the forward, backward and reduce kernels against their plain
+     versions, all three timed, on every tier window of the first packed
+     batch (odd DI, 8-row tiers; each with its plan and valid pairs per
+     CTA), on that batch as one window, on the one-window fixed-budget
+     run's first batch, on the AID-scale step's DK>40 tier and on the
+     AID-scale batch as one window; checked with K=9 radial functions (dW
+     in shared memory) on the one-window fixed-budget batch and with
+     HC=1024 (128 heads of 8) on its geometry, a width whose shared
+     memory the first forward kernel could not lay out; the forward also
+     at every other head width it takes (C=1, 2, 4, 16, 32) on that
+     batch; the reduce timed against partial.sum(0) on the same
+     partials;
   7. training times: ms per step (CUDA events around steps on cached
-     batches) and training molecules/s per epoch.
+     batches) of the packed batches with their tiers and as one window
+     (tiers and split removed), and of the fixed-budget batches with their
+     tiers and on the one-window path's batches, each pair in turns, with
+     the launches per step; training molecules/s per epoch of the three
+     runs.
+Each row of the kernels line takes its launches from a path that launches
+its shape, with the counts zeroed just before that path.
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -188,14 +202,15 @@ def kernel_inputs(graphs, batch_size, cfg, device, seed):
 
 
 def batch_kernel_inputs(batch, cfg, seed):
-    """Attention inputs for a batch on the card: geometry, masks and ids
-    from the batch, activations and weights from a seeded numpy
-    generator."""
+    """Attention inputs for a batch on the card, over all of its rows as
+    one window: geometry, masks and ids from the batch, activations and
+    weights from a seeded numpy generator."""
     import numpy as np
     import torch
     from x2gnn_tpu_torch.models.x2gnn import blocked_geometry
 
-    geo = blocked_geometry(batch, cfg)
+    whole = blocked_geometry(dataclasses.replace(
+        batch, tiers=(), n_hi=0, d_lo=0), cfg).windows[0]
     device = batch.positions.device
     N, D = batch.in_edges.shape
     HC, LK = cfg.in_channels, cfg.sbf_dim * cfg.rbf_dim
@@ -206,8 +221,8 @@ def batch_kernel_inputs(batch, cfg, seed):
             (rng.normal(size=shape) * scale).astype(np.float32)).to(device)
 
     return (normal(N, D, HC), normal(N, D, HC), normal(N, D, HC),
-            normal(N, HC), geo.rbf_env_out, normal(LK, HC, scale=0.3),
-            normal(HC), geo.z, geo.a_ids, geo.b_ids)
+            normal(N, HC), whole.rbf_env_out, normal(LK, HC, scale=0.3),
+            normal(HC), whole.z, whole.a_ids, whole.b_ids)
 
 
 def fwd_occupancy_line(args, cfg):
@@ -360,9 +375,10 @@ def check_bwd_kernel(tag, args, cfg, seed, timed, out):
     kernel on `args`: all six
     gradients, bitwise equal across two runs, exact zeros at dead rows,
     the reduce against a float64 sum of the kernel's own partials, and
-    the kernel alone timed. With `timed`, returns the JSON records of the
-    backward kernel and of the reduce kernel at this shape: the backward's
-    ms is the kernel alone (its ms_with_reduce adds the reduce), its bound
+    the kernel alone timed (backlog_ms). With `timed`, returns the JSON
+    records of the backward kernel and of the reduce kernel at this shape:
+    the backward's ms is the kernel alone (its ms_with_reduce adds the
+    reduce; ms_events is one call at a time by CUDA events), its bound
     (without the saved output's bytes; bound_ms_with_saved_out with them)
     and plain version are those of the whole backward."""
     import numpy as np
@@ -418,7 +434,9 @@ def check_bwd_kernel(tag, args, cfg, seed, timed, out):
         f"{red_err:.3e} against a float64 sum (limit {tol:.3e})")
     if red_err > tol or not torch.equal(red, reduce_partials(partial)):
         raise AssertionError(f"reduce {tag}: wrong or not reproducible")
-    ms = median_ms(lambda: blocked_attention_bwd_partials(
+    # device time back to back (the tier windows are shorter than the
+    # host's time to allocate the gradients and launch)
+    ms = backlog_ms(lambda: blocked_attention_bwd_partials(
         *args, g, heads=H, num_radial=K, out=out))
     nbytes, out_bytes, ops, n_pairs = attention_bwd_work(args, g, out, H, K)
     if not timed:
@@ -426,19 +444,24 @@ def check_bwd_kernel(tag, args, cfg, seed, timed, out):
             "pairs")
         return None
 
-    with_reduce = median_ms(lambda: blocked_attention_bwd(
+    with_reduce = backlog_ms(lambda: blocked_attention_bwd(
+        *args, g, heads=H, num_radial=K, out=out))
+    # one call at a time by CUDA events: the host's launch time in it
+    ms_events = median_ms(lambda: blocked_attention_bwd_partials(
         *args, g, heads=H, num_radial=K, out=out))
     plain_ms = median_ms(lambda: blocked_attention_bwd_plain(
         *args, g, heads=H, num_radial=K, out=out))
     bound_ms, bound_by, t_bytes, t_ops = bound(nbytes, ops)
     with_out_ms = bound(nbytes + out_bytes, ops)[0]
-    log(f"[bwd {tag}] kernel {ms:.4f} ms/launch, kernel+reduce "
-        f"{with_reduce:.4f} ms, plain {plain_ms:.4f} ms; {nbytes} bytes "
+    log(f"[bwd {tag}] kernel {ms:.4f} ms/launch ({ms_events:.4f} ms timed "
+        f"one call at a time), kernel+reduce {with_reduce:.4f} ms, plain "
+        f"{plain_ms:.4f} ms; {nbytes} bytes "
         f"({t_bytes:.4f} ms at 3.35 TB/s; {with_out_ms:.4f} ms with the saved"
         f" out's {out_bytes} bytes), {ops} FP32 ops over {n_pairs} valid "
         f"pairs ({t_ops:.4f} ms at 67 TFLOP/s); kernel alone "
         f"{ms / bound_ms:.1f}x its bound")
-    bwd = {"ms": ms, "ms_with_reduce": with_reduce, "plain_ms": plain_ms,
+    bwd = {"ms": ms, "ms_with_reduce": with_reduce, "ms_events": ms_events,
+           "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "bound_ms_with_saved_out": with_out_ms, "max_abs_err": max_abs,
            "library_ms": None, "warps_per_sm": occ["warps_per_sm"]}
@@ -470,21 +493,35 @@ def check_window(tag, args, cfg, seed, fwd_timed=False, bwd_timed=False):
     return fwd, check_bwd_kernel(tag, args, cfg, seed, bwd_timed, out)
 
 
-def first_atoms(args, n):
-    """The first n atom rows of attention inputs (W and the bias stay)."""
+def window_args(args, window):
+    """Attention inputs cut to one window (b0, b1, di, dk): atom rows
+    [b0, b1), their first di query and dk key slots, contiguous, as the
+    conv cuts them (W and the bias stay)."""
+    b0, b1, di, dk = window
     q, k, v, e, rbf, w, bias, z, a_ids, b_ids = args
-    return (q[:n], k[:n], v[:n], e[:n], rbf[:n], w, bias, z[:n], a_ids[:n],
-            b_ids[:n])
+    r = slice(b0, b1)
+    return (q[r, :di].contiguous(), k[r, :dk].contiguous(),
+            v[r, :dk].contiguous(), e[r].contiguous(),
+            rbf[r, :dk].contiguous(), w, bias, z[r, :di, :dk].contiguous(),
+            a_ids[r, :di].contiguous(), b_ids[r, :dk].contiguous())
 
 
-def rect_window(args, di, dk):
-    """A rectangular DI != DK window cut from square attention inputs: the
-    first di query slots and the first dk key slots of every atom."""
-    q, k, v, e, rbf, w, bias, z, a_ids, b_ids = args
-    return (q[:, :di].contiguous(), k[:, :dk].contiguous(),
-            v[:, :dk].contiguous(), e, rbf[:, :dk].contiguous(), w, bias,
-            z[:, :di, :dk].contiguous(), a_ids[:, :di].contiguous(),
-            b_ids[:, :dk].contiguous())
+def windows_of(batch):
+    """The attention windows (b0, b1, di, dk) the conv runs on a batch."""
+    from x2gnn_tpu_torch.models.x2gnn import attention_windows
+    N, D = batch.in_edges.shape
+    return attention_windows(N, D, batch.n_hi, batch.d_lo, batch.tiers)
+
+
+def window_shape(window):
+    """(N, DI, DK) of the kernel call on a window (b0, b1, di, dk)."""
+    b0, b1, di, dk = window
+    return (b1 - b0, di, dk)
+
+
+def n_windows(batches):
+    """Attention kernel calls per conv layer over `batches`."""
+    return sum(len(windows_of(b)) for b in batches)
 
 
 def serve(pred, graphs, expect_launches, tag):
@@ -516,12 +553,32 @@ def launch_counts():
             "reduce": reduce_partials.launches}
 
 
-def train_flagship(mcfg, tcfg, graphs, device):
-    """Phase 6a: Trainer.fit over `graphs` for tcfg.max_epoch epochs in a
-    temporary workdir, with every launch count zeroed just before and read
-    just after. Checks finite losses, no skipped step, one metrics record
-    per epoch and launches = conv_layers x (steps, steps + eval batches).
-    Returns (trainer, state, records, counts)."""
+def launch_shapes():
+    """{"fwd": {...}, "bwd": {...}}: launches per (N, DI, DK)."""
+    from x2gnn_tpu_torch.ops.blocked_attn import (
+        blocked_attention, blocked_attention_bwd_partials)
+    return {"fwd": dict(blocked_attention.by_shape),
+            "bwd": dict(blocked_attention_bwd_partials.by_shape)}
+
+
+def one_window_budgets(graphs, batch_size):
+    """`pad_budget_for` without the two-tier split and the tiers: the
+    fixed budgets of the earlier slices, which a caller gets by passing
+    them as `Trainer(budgets=...)`. Its batches are not degree-sorted and
+    run one attention window per conv."""
+    from x2gnn_tpu_torch.data.batching import pad_budget_for
+    return pad_budget_for(graphs, batch_size)._replace(
+        n_deg_lo=0, n_hi=0, tiers=())
+
+
+def train_flagship(mcfg, tcfg, graphs, device, tag, budgets=None):
+    """Phase 6a-6c: Trainer.fit over `graphs` for tcfg.max_epoch epochs in
+    a temporary workdir, with every launch count zeroed just before and
+    read just after. Checks finite losses, no skipped step, one metrics
+    record per epoch and launches = conv_layers x the attention windows
+    (one per non-empty degree tier) of the train steps, for the forward
+    also of the eval batches. Returns (trainer, state, records, counts,
+    counts per shape)."""
     import numpy as np
     import torch
     from x2gnn_tpu_torch.models.x2gnn import X2GNN
@@ -532,50 +589,64 @@ def train_flagship(mcfg, tcfg, graphs, device):
     model = X2GNN(mcfg, torch.Generator().manual_seed(0), device=device)
     with tempfile.TemporaryDirectory() as workdir:
         trainer = Trainer(model, mcfg, tcfg, graphs, targets,
-                          workdir=workdir, device=device)
-        log(f"[train] {len(trainer.train_idx)} train / "
+                          workdir=workdir, budgets=budgets, device=device)
+        log(f"[train {tag}] {len(trainer.train_idx)} train / "
             f"{len(trainer.val_idx)} val / {len(trainer.test_idx)} test "
-            f"molecules, budgets {tuple(trainer.budgets)}")
+            f"molecules, base budgets {tuple(trainer.budgets)}")
         reset_launch_counts()
         state, summary = trainer.fit(epochs=tcfg.max_epoch)
         torch.cuda.synchronize()
-        counts = launch_counts()
+        counts, shapes = launch_counts(), launch_shapes()
         with open(os.path.join(workdir, "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
         files = sorted(os.listdir(workdir))
     for r in records:
-        log(f"[train] epoch {r['epoch']}: loss {r['loss']:.6f} val_mae "
-            f"{r['val_mae']:.6f} test_mae {r['test_mae']} step {r['step']} "
-            f"bad_steps {r['bad_steps']} {r['seconds']:.3f} s "
-            f"{r['molecules_per_sec']:.1f} molecules/s")
-    log(f"[train] summary {json.dumps(summary)}; workdir files {files}")
+        log(f"[train {tag}] epoch {r['epoch']}: loss {r['loss']:.6f} "
+            f"val_mae {r['val_mae']:.6f} test_mae {r['test_mae']} step "
+            f"{r['step']} bad_steps {r['bad_steps']} {r['seconds']:.3f} s "
+            f"{r['molecules_per_sec']:.1f} molecules/s, occupancy pairs "
+            f"{r.get('occupancy_pairs')}")
+    log(f"[train {tag}] summary {json.dumps(summary)}; workdir files "
+        f"{files}")
     if len(records) != tcfg.max_epoch:
-        raise AssertionError(f"train: {len(records)} metrics records")
+        raise AssertionError(f"train {tag}: {len(records)} metrics records")
     if not all(np.isfinite(r["loss"]) and np.isfinite(r["val_mae"])
                for r in records):
-        raise AssertionError("train: non-finite loss or val MAE")
+        raise AssertionError(f"train {tag}: non-finite loss or val MAE")
     if int(state.bad_steps) != 0 or records[-1]["bad_steps"] != 0:
-        raise AssertionError("train: a step was skipped as non-finite")
-    steps = trainer.steps_per_epoch() * tcfg.max_epoch
-    n_val = math.ceil(len(trainer.val_idx) / tcfg.batch_size)
-    n_test = math.ceil(len(trainer.test_idx) / tcfg.batch_size)
+        raise AssertionError(f"train {tag}: a step was skipped")
+    epochs = tcfg.max_epoch
+    train_b = trainer.batches(trainer.train_idx)
+    steps = len(train_b) * epochs
     improved = sum(r["test_mae"] is not None and r["val_mae"]
                    == r["best_val_mae"] for r in records)
-    evals = n_val * tcfg.max_epoch + n_test * improved
+    val_b = trainer.batches(trainer.val_idx)
+    test_b = trainer.batches(trainer.test_idx)
+    train_w = n_windows(train_b) * epochs
+    eval_w = n_windows(val_b) * epochs + n_windows(test_b) * improved
     L = mcfg.conv_layers
-    expect = {"fwd": L * (steps + evals), "bwd": L * steps,
-              "reduce": L * steps}
-    log(f"[train] launches {counts} (expected {expect}: {L} layers x "
-        f"{steps} steps, + {evals} eval batches for the forward)")
+    expect = {"fwd": L * (train_w + eval_w), "bwd": L * train_w,
+              "reduce": L * train_w}
+    b0 = train_b[0]
+    n, d = b0.in_edges.shape
+    log(f"[train {tag}] {len(train_b)} train batches of N={n}, D={d}, "
+        f"{b0.y.shape[0]} graph slots, tiers {b0.tiers}, split (n_hi="
+        f"{b0.n_hi}, d_lo={b0.d_lo}); {len(val_b)} val and {len(test_b)} "
+        "test batches")
+    log(f"[train {tag}] launches {counts} (expected {expect}: {L} layers x "
+        f"{train_w} windows of {steps} steps, + {eval_w} windows of "
+        f"{len(val_b) * epochs + len(test_b) * improved} eval batches for "
+        f"the forward)")
     if counts != expect or int(state.step) != steps:
-        raise AssertionError(f"train: launches {counts}, expected {expect}"
-                             f", step {int(state.step)} of {steps}")
-    return trainer, state, records, counts
+        raise AssertionError(f"train {tag}: launches {counts}, expected "
+                             f"{expect}, step {int(state.step)} of {steps}")
+    return trainer, state, records, counts, shapes
 
 
-def train_one_step(mcfg, tcfg, graphs, device, tag):
+def train_one_step(mcfg, tcfg, graphs, device, tag, budgets=None):
     """One training step on the first batch of `graphs` with every count
-    zeroed before and read after; returns (the batch, counts)."""
+    zeroed before and read after: conv_layers launches of each kernel per
+    attention window. Returns (the batch, counts, counts per shape)."""
     import numpy as np
     import torch
     from x2gnn_tpu_torch.models.x2gnn import X2GNN
@@ -585,22 +656,22 @@ def train_one_step(mcfg, tcfg, graphs, device, tag):
     targets = np.array([g.y[0] for g in graphs], np.float32)
     model = X2GNN(mcfg, torch.Generator().manual_seed(0), device=device)
     trainer = Trainer(model, mcfg, tcfg, graphs, targets,
-                      workdir="unused", device=device)
+                      workdir="unused", budgets=budgets, device=device)
     batch = trainer.batches(trainer.train_idx)[0]
     state = trainer.init_state()
     reset_launch_counts()
     state, loss = trainer.train_step(state, batch)
     torch.cuda.synchronize()
-    counts = launch_counts()
+    counts, shapes = launch_counts(), launch_shapes()
     shape = tuple(batch.in_edges.shape)
-    log(f"[train {tag}] one step at N, D = {shape}: loss {float(loss):.6f}, "
-        f"launches {counts}")
-    L = mcfg.conv_layers
+    log(f"[train {tag}] one step at N, D = {shape}, windows "
+        f"{windows_of(batch)}: loss {float(loss):.6f}, launches {counts}")
+    n = mcfg.conv_layers * len(windows_of(batch))
     if not math.isfinite(float(loss)) or int(state.bad_steps):
         raise AssertionError(f"train {tag}: non-finite loss")
-    if counts != {"fwd": L, "bwd": L, "reduce": L}:
+    if counts != {"fwd": n, "bwd": n, "reduce": n}:
         raise AssertionError(f"train {tag}: launches {counts}")
-    return batch, counts
+    return batch, counts, shapes
 
 
 def check_step_on_card_and_cpu(mcfg, graphs, device):
@@ -618,6 +689,9 @@ def check_step_on_card_and_cpu(mcfg, graphs, device):
     model = X2GNN(mcfg, torch.Generator().manual_seed(4), device=device)
     cpu_model = copy.deepcopy(model).to("cpu")
     batch = pad_graphs(graphs, pad_budget_for(graphs, len(graphs)))
+    if len(windows_of(batch)) < 2:
+        raise AssertionError(f"card vs cpu: the batch has no degree tiers "
+                             f"({batch.tiers})")
 
     def grads(m, dev):
         b = batch.to(dev)
@@ -630,7 +704,8 @@ def check_step_on_card_and_cpu(mcfg, graphs, device):
     t0 = time.perf_counter()
     cpu_loss, g_cpu = grads(cpu_model, "cpu")
     log(f"[card vs cpu] one step on {len(graphs)} molecules, N, D = "
-        f"{tuple(batch.in_edges.shape)}: loss {loss:.7f} card, "
+        f"{tuple(batch.in_edges.shape)}, tiers {batch.tiers}: loss "
+        f"{loss:.7f} card, "
         f"{cpu_loss:.7f} CPU ({time.perf_counter() - t0:.1f} s on the CPU)")
     if abs(loss - cpu_loss) > 1e-5 * abs(cpu_loss):
         raise AssertionError("card vs cpu: losses differ")
@@ -655,11 +730,11 @@ def check_step_on_card_and_cpu(mcfg, graphs, device):
         f"max|err|/max|g| {worst[0]:.3e} ({worst[1]})")
 
 
-def step_ms(trainer, state, reps: int = 20):
-    """Median ms of one training step on cached device batches, by CUDA
-    events around each step, after 3 steps of warm-up."""
+def step_ms(trainer, state, batches, reps: int = 20):
+    """Median ms of one training step on `batches` (cached on the card),
+    by CUDA events around each step, after 3 steps of warm-up. Returns
+    (ms, state, steps run)."""
     import torch
-    batches = trainer.batches(trainer.train_idx)
     pairs = []
     for i in range(reps + 3):
         start = torch.cuda.Event(enable_timing=True)
@@ -670,7 +745,8 @@ def step_ms(trainer, state, reps: int = 20):
         if i >= 3:
             pairs.append((start, end))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs), state
+    return (statistics.median(s.elapsed_time(e) for s, e in pairs), state,
+            reps + 3)
 
 
 def main() -> int:
@@ -688,6 +764,7 @@ def main() -> int:
     from x2gnn_tpu_torch.infer import Predictor, quantize_budgets
     from x2gnn_tpu_torch.models.x2gnn import X2GNN
     from x2gnn_tpu_torch.ops import _build
+    from x2gnn_tpu_torch.ops.blocked_attn import reset_launch_counts
     from x2gnn_tpu_torch.profile_training import flagship_training_configs
 
     # ---- 1. card ----
@@ -771,31 +848,65 @@ def main() -> int:
     mcfg, tcfg = flagship_training_configs()
     tcfg = dataclasses.replace(tcfg, max_epoch=2)
     log("[train] flagship recipe from runs/flagship_r5_regression/args.json"
-        f" with pack_mixed=False (packing is not ported yet), max_epoch=2: "
-        f"{json.dumps(dataclasses.asdict(tcfg))}")
-    if mcfg != cfg:
-        raise AssertionError(f"flagship model config {mcfg}")
+        f", max_epoch=2: {json.dumps(dataclasses.asdict(tcfg))}")
+    if mcfg != cfg or not tcfg.pack_mixed:
+        raise AssertionError(f"flagship configs {mcfg}, {tcfg}")
     train_graphs = synthetic_dataset(512, mean_atoms=18, seed=11)
-    trainer, state, train_records, train_counts = train_flagship(
-        mcfg, tcfg, train_graphs, device)
-    aid_batch, aid_counts = train_one_step(
-        mcfg, dataclasses.replace(tcfg, batch_size=4), aid, device, "AID")
-    if aid_batch.in_edges.shape[1] <= 40:
-        raise AssertionError(f"AID-scale training batch "
-                             f"{tuple(aid_batch.in_edges.shape)} is not D > 40")
+    # 6a: the recipe as written: mixed-FFD packed batches, degree tiers
+    packed, pstate, packed_records, packed_counts, packed_shapes = \
+        train_flagship(mcfg, tcfg, train_graphs, device, "packed")
+    # 6b: the same recipe on fixed budgets (pad_budget_for), also tiered
+    fixed, fstate, fixed_records, _, _ = train_flagship(
+        mcfg, dataclasses.replace(tcfg, pack_mixed=False), train_graphs,
+        device, "fixed")
+    # 6c: fixed budgets without split and tiers, Trainer(budgets=...): one
+    # window per conv, the fixed-budget path of the earlier slices
+    fixed_one, _, fixed_one_records, fixed_one_counts, _ = train_flagship(
+        mcfg, dataclasses.replace(tcfg, pack_mixed=False), train_graphs,
+        device, "fixed one window", budgets=one_window_budgets(
+            train_graphs, tcfg.batch_size))
+    # 6d: one step at AID scale with its tiers, and as one window
+    aid_tcfg = dataclasses.replace(tcfg, pack_mixed=False, batch_size=4)
+    aid_batch, _, aid_shapes = train_one_step(mcfg, aid_tcfg, aid, device,
+                                              "AID")
+    aid_tier = windows_of(aid_batch)[0]
+    if aid_tier[3] <= 40:
+        raise AssertionError(f"AID-scale training tier {aid_tier} is not "
+                             "DK > 40")
+    aid_one_batch, aid_one_counts, _ = train_one_step(
+        mcfg, aid_tcfg, aid, device, "AID one window",
+        budgets=one_window_budgets(aid, 4))
     check_step_on_card_and_cpu(mcfg, qm9[:8], device)
     # the forward, backward and reduce kernels against their plain
-    # versions, and timed, at the shapes training gave them: the first
-    # batch of each run
-    train_batch = trainer.batches(trainer.train_idx)[0]
-    train_args = batch_kernel_inputs(train_batch, mcfg, seed=23)
+    # versions, and timed, on every tier window of the first packed batch
+    packed_batches = packed.batches(packed.train_idx)
+    packed_args = batch_kernel_inputs(packed_batches[0], mcfg, seed=23)
+    tiers = []
+    for t, win in enumerate(windows_of(packed_batches[0])):
+        fwd, (bwd, red) = check_window(
+            f"packed tier {t}", window_args(packed_args, win), mcfg,
+            seed=40 + t, fwd_timed=True, bwd_timed=True)
+        tiers.append((win, fwd, bwd, red))
+    # the same batch as one window, the alternative the tiers replace (no
+    # path launches it: logged beside the tiers, not a row of its own)
+    packed_one_fwd, (packed_one_bwd, _) = check_window(
+        "packed one window", packed_args, mcfg, seed=24, fwd_timed=True,
+        bwd_timed=True)
+    # the one-window fixed-budget path's first batch, as the earlier
+    # slices checked and timed the training kernels
+    train_batch = fixed_one.batches(fixed_one.train_idx)[0]
     records["fwd_train"], (records["bwd"], records["reduce"]) = check_window(
-        "train", train_args, mcfg, seed=24, fwd_timed=True, bwd_timed=True)
-    # a rectangular window (DI != DK) cut from the same real batch, as
-    # degree tiers will give the kernels
-    n_slots = train_args[0].shape[1]
-    check_window("train rect", rect_window(train_args, n_slots * 3 // 4,
-                                           n_slots), mcfg, seed=27)
+        "train", batch_kernel_inputs(train_batch, mcfg, seed=27), mcfg,
+        seed=24, fwd_timed=True, bwd_timed=True)
+    # the AID-scale step: its D > 40 tier, and the whole batch as one
+    # window (more atoms than CTAs, several per CTA with i-chunks)
+    aid_args = batch_kernel_inputs(aid_batch, mcfg, seed=25)
+    records["fwd_aid_tier"], (records["bwd_aid_tier"], _) = check_window(
+        "train AID tier 0", window_args(aid_args, aid_tier), mcfg, seed=26,
+        fwd_timed=True, bwd_timed=True)
+    _, (records["bwd_aid"], _) = check_window(
+        "train AID", batch_kernel_inputs(aid_one_batch, mcfg, seed=25), mcfg,
+        seed=26, bwd_timed=True)
     # K = 9 radial functions, beyond the backward's 6 in registers: dW in
     # shared memory, on the same batch
     cfg_k9 = dataclasses.replace(mcfg, rbf_dim=9)
@@ -808,8 +919,10 @@ def main() -> int:
     cfg_wide = dataclasses.replace(mcfg, in_channels=1024, heads=128)
     wide_args = batch_kernel_inputs(train_batch, cfg_wide, seed=30)
     check_fwd_kernel("train HC=1024", wide_args, cfg_wide, timed=False)
-    check_window("train HC=1024", first_atoms(wide_args, 256), cfg_wide,
-                 seed=31)
+    n_slots = wide_args[0].shape[1]
+    check_window("train HC=1024", window_args(wide_args,
+                                              (0, 256, n_slots, n_slots)),
+                 cfg_wide, seed=31)
     del wide_args
     # every other head width the kernel takes, on the same batch: C = 1, 2
     # (scalar scores), 4, 16, 32 (16-byte loads), beside the flagship's 8
@@ -818,30 +931,59 @@ def main() -> int:
         check_fwd_kernel(f"train C={mcfg.in_channels // heads}",
                          batch_kernel_inputs(train_batch, cfg_c, seed=32),
                          cfg_c, timed=False)
-    _, (records["bwd_aid"], _) = check_window(
-        "train AID", batch_kernel_inputs(aid_batch, mcfg, seed=25), mcfg,
-        seed=26, bwd_timed=True)
 
     # ---- 7. training times ----
-    ms, state = step_ms(trainer, state)
-    n, d = trainer.batches(trainer.train_idx)[0].in_edges.shape
-    log(f"[train] {ms:.3f} ms per training step (median of 20, CUDA events,"
-        f" batch 32 at N={n}, D={d}, cached on the card); training "
-        f"molecules/s per epoch (wall clock, incl. eval and checkpoints): "
-        + ", ".join(f"epoch {r['epoch']} {r['molecules_per_sec']:.1f}"
-                    for r in train_records))
-    log(f"[train] forward kernel {records['fwd_train']['ms']:.4f} ms per "
-        f"launch at N={n}, D={d} ({records['fwd_train']['warps_per_sm']} "
-        "resident warps per SM)")
-    log(f"[train] backward kernel {records['bwd']['ms']:.4f} ms per launch"
-        f" at N={n}, D={d} (with the reduce "
-        f"{records['bwd']['ms_with_reduce']:.4f} ms, "
-        f"{records['bwd']['warps_per_sm']} resident warps per SM); "
-        f"{records['bwd_aid']['ms']:.4f} ms at N, D = "
-        f"{tuple(aid_batch.in_edges.shape)}")
+    # the packed step with its tiers and as one window per conv (the same
+    # sorted batches, split and tiers removed); the fixed-budget step with
+    # its tiers and on the one-window path's batches; each on one model and
+    # its weights, in turns
+    one_window = [dataclasses.replace(b, tiers=(), n_hi=0, d_lo=0)
+                  for b in packed_batches]
+    fixed_batches = fixed.batches(fixed.train_idx)
+    fixed_one_batches = fixed_one.batches(fixed_one.train_idx)
+    for tag, trainer, state, tiered, untiered in (
+            ("packed", packed, pstate, packed_batches, one_window),
+            ("fixed", fixed, fstate, fixed_batches, fixed_one_batches)):
+        turns = {}
+        for name, batches in (("tiers", tiered), ("one window", untiered),
+                              ("one window", untiered), ("tiers", tiered)):
+            reset_launch_counts()
+            ms, state, steps = step_ms(trainer, state, batches)
+            per_step = {k: v / steps for k, v in launch_counts().items()}
+            log(f"[train {tag}] {name}: {ms:.3f} ms per training step "
+                f"(median of 20, CUDA events, cached on the card), launches "
+                f"per step {per_step}")
+            turns.setdefault(name, []).append(ms)
+        n, d = tiered[0].in_edges.shape
+        log(f"[train {tag}] with tiers {turns['tiers'][0]:.3f} / "
+            f"{turns['tiers'][1]:.3f} ms per step, one window "
+            f"{turns['one window'][0]:.3f} / {turns['one window'][1]:.3f} ms"
+            f" (N={n}, D={d}, {tiered[0].y.shape[0]} graph slots)")
+    for tag, recs in (("packed", packed_records), ("fixed", fixed_records),
+                      ("fixed one window", fixed_one_records)):
+        log(f"[train {tag}] training molecules/s per epoch (wall clock, "
+            "incl. eval and checkpoints): " + ", ".join(
+                f"epoch {r['epoch']} {r['molecules_per_sec']:.1f}"
+                for r in recs))
+    for win, fwd, bwd, red in tiers:
+        log(f"[train packed] tier {win}: forward {fwd['ms']:.4f} ms, "
+            f"backward {bwd['ms']:.4f} ms (with the reduce "
+            f"{bwd['ms_with_reduce']:.4f}), reduce {red['ms']:.4f} ms")
+    log(f"[train packed] one window: forward {packed_one_fwd['ms']:.4f} ms, "
+        f"backward {packed_one_bwd['ms']:.4f} ms (with the reduce "
+        f"{packed_one_bwd['ms_with_reduce']:.4f}); AID tier {aid_tier}: "
+        f"forward {records['fwd_aid_tier']['ms']:.4f} ms, backward "
+        f"{records['bwd_aid_tier']['ms']:.4f} ms (device time back to back)")
 
     fwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_fwd.cu"
     bwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_bwd.cu"
+
+    def by_events(rec):
+        # the backward rows of the earlier slices are timed one call at a
+        # time by CUDA events; the device time back to back beside it
+        return {**rec, "ms": rec["ms_events"], "ms_backlog": rec["ms"]}
+
+    aid_note = f"AID-scale step, tier {aid_tier}"
     kernels = [
         {"name": "blocked_attn_fwd", "route": "cuda", "source": fwd_src,
          "replaces": f"{PALLAS}:166", "launches": launches_qm9,
@@ -851,17 +993,50 @@ def main() -> int:
          "launches": launches_aid, **records["aid"]},
         {"name": "blocked_attn_fwd (training)", "route": "cuda",
          "source": fwd_src, "replaces": f"{PALLAS}:166",
-         "launches": train_counts["fwd"], **records["fwd_train"]},
+         "launches": fixed_one_counts["fwd"], **records["fwd_train"]},
         {"name": "blocked_attn_bwd", "route": "cuda", "source": bwd_src,
-         "replaces": f"{PALLAS}:198", "launches": train_counts["bwd"],
-         **records["bwd"]},
+         "replaces": f"{PALLAS}:198", "launches": fixed_one_counts["bwd"],
+         **by_events(records["bwd"])},
         {"name": "blocked_attn_bwd (D>40)", "route": "cuda",
          "source": bwd_src, "replaces": f"{PALLAS}:346",
-         "launches": aid_counts["bwd"], **records["bwd_aid"]},
+         "launches": aid_one_counts["bwd"], **by_events(records["bwd_aid"])},
         {"name": "blocked_attn_bwd_reduce", "route": "cuda",
          "source": bwd_src, "replaces": f"{PALLAS}:271",
-         "launches": train_counts["reduce"], **records["reduce"]},
+         "launches": fixed_one_counts["reduce"], **records["reduce"]},
+        {"name": "blocked_attn_fwd (D>40, training tier)", "route": "cuda",
+         "source": fwd_src, "replaces": f"{PALLAS}:282",
+         "launches": aid_shapes["fwd"][window_shape(aid_tier)],
+         "window": aid_note, **records["fwd_aid_tier"]},
+        {"name": "blocked_attn_bwd (D>40, training tier)", "route": "cuda",
+         "source": bwd_src, "replaces": f"{PALLAS}:346",
+         "launches": aid_shapes["bwd"][window_shape(aid_tier)],
+         "window": aid_note, **records["bwd_aid_tier"]},
     ]
+    for t, (win, fwd, bwd, _) in enumerate(tiers):
+        ichunk = win[3] > 40      # the reference's i-chunked kernels
+        note = f"packed tier {t}, {win} of the first packed batch"
+        kernels += [
+            {"name": f"blocked_attn_fwd (packed tier {t})", "route": "cuda",
+             "source": fwd_src,
+             "replaces": f"{PALLAS}:{282 if ichunk else 166}",
+             "launches": packed_shapes["fwd"].get(window_shape(win), 0),
+             "window": note, **fwd},
+            {"name": f"blocked_attn_bwd (packed tier {t})", "route": "cuda",
+             "source": bwd_src,
+             "replaces": f"{PALLAS}:{346 if ichunk else 198}",
+             "launches": packed_shapes["bwd"].get(window_shape(win), 0),
+             "window": note, **bwd}]
+    # the reduce's count is not kept per shape: one row for the packed run,
+    # timed on the partials of its largest tier
+    win, _, _, red = max(tiers, key=lambda t: t[0][1] - t[0][0])
+    kernels.append(
+        {"name": "blocked_attn_bwd_reduce (packed tiers)", "route": "cuda",
+         "source": bwd_src, "replaces": f"{PALLAS}:271",
+         "launches": packed_counts["reduce"],
+         "window": f"partials of packed tier {win}", **red})
+    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    if idle:
+        raise AssertionError(f"rows not launched on their path: {idle}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -50,10 +50,6 @@ def _np(t):
     return t.detach().numpy()
 
 
-def _jbudgets(b):
-    return jbatching.Budgets(b.n_node, b.n_edge, b.n_trip, b.n_deg)
-
-
 # ---- masked gather and embedding ----------------------------------------
 
 @pytest.mark.parametrize("table", ["in_edges", "out2in"])
@@ -270,8 +266,8 @@ def _whole_model_gradients():
     graphs = _graphs(4, seed=22)
     targets = np.random.default_rng(7).normal(size=4).astype(np.float32)
     bud = pad_budget_for(graphs, 4)
-    jb = jbatching.pad_graphs(graphs, _jbudgets(bud), targets=targets,
-                              with_triplets=False)
+    jb = jbatching.pad_graphs(graphs, jbatching.Budgets(*bud),
+                              targets=targets, with_triplets=False)
     jmodel = JaxX2GNN(JaxModelConfig(use_pallas=True, **SMALL))
     params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jb)
 
@@ -322,8 +318,10 @@ def trainer_runs(tmp_path_factory):
 
 def _trainer_runs(mktemp):
     """Two epochs of the flagship recipe (plateau, fused update, clip,
-    EMA) in both packages on 24 small molecules, same budgets, same
-    initial weights; plus one step of each from those weights."""
+    EMA) in both packages on 24 small molecules, same initial weights and
+    the same default budgets, whose degree tiers both run (one Pallas
+    call per tier in interpret mode, one kernel call per tier in the
+    port); plus one step of each from those weights."""
     graphs = _graphs(24, seed=23)
     targets = np.array([g.y[0] for g in graphs], np.float32)
     bud = pad_budget_for(graphs, 8)
@@ -332,7 +330,7 @@ def _trainer_runs(mktemp):
     jcfg = JaxModelConfig(use_pallas=True, **SMALL)
     jt = JaxTrainer(JaxX2GNN(jcfg), jcfg, JaxTrainConfig(**kw), graphs,
                     targets, workdir=str(mktemp("jax")),
-                    budgets=_jbudgets(bud))
+                    budgets=jbatching.Budgets(*bud))
     jstate0 = jt.init_state()
     flat0 = export_params_flat(jstate0.params)
     jbatch = next(jt._batches(jt.train_idx))
@@ -424,8 +422,8 @@ def test_cli_trains_on_the_cpu(tmp_path):
         assert (workdir / name).exists(), name
 
 
-@pytest.mark.parametrize("flag", ["--pack-mixed", "--data-parallel",
-                                  "--resume=x", "--data=x"])
+@pytest.mark.parametrize("flag", ["--data-parallel", "--resume=x",
+                                  "--data=x"])
 def test_cli_refuses_unported_flags(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli_main(["--device", "cpu", "--synthetic", "4", flag,
@@ -433,19 +431,58 @@ def test_cli_refuses_unported_flags(flag, tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    dict(pack_mixed=True), dict(bucket_shapes=2), dict(accum_steps=2),
-    dict(mesh=object()), dict(edge_partition="ring"),
+    dict(accum_steps=2), dict(mesh=object()), dict(edge_partition="ring"),
     dict(feat_dtype="float16")])
 def test_trainer_refuses_unported_options(change):
     graphs = _graphs(4, seed=24)
     targets = np.zeros(4, np.float32)
-    train = {k: v for k, v in change.items()
-             if k in ("pack_mixed", "bucket_shapes", "accum_steps")}
+    train = {k: v for k, v in change.items() if k == "accum_steps"}
     other = {k: v for k, v in change.items() if k not in train}
     model = X2GNN(ModelConfig(**SMALL), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(model, ModelConfig(**SMALL), TrainConfig(**train), graphs,
                 targets, device="cpu", **other)
+
+
+@pytest.mark.parametrize("how", ["cli --pack-mixed", "pack_mixed",
+                                 "bucket_shapes=2, pack_budget"])
+def test_packed_training_runs_on_the_cpu(how, tmp_path):
+    """One epoch of planned batches on 16 small molecules through the CLI
+    or the Trainer: finite loss, one step per planned batch, the pair
+    occupancy recorded."""
+    workdir = tmp_path / "run"
+    if how.startswith("cli"):
+        assert cli_main(["--device", "cpu", "--synthetic", "16", "--epochs",
+                         "1", "--config", _small_config(tmp_path),
+                         "--pack-mixed", "--workdir", str(workdir)]) == 0
+        _, tcfg = load_configs(str(workdir / "args.json"))
+        assert tcfg.pack_mixed
+        n_steps = None
+    else:
+        train = (dict(pack_mixed=True) if how == "pack_mixed"
+                 else dict(bucket_shapes=2, pack_budget=True))
+        graphs = _graphs(16, seed=29)
+        model = X2GNN(ModelConfig(**SMALL), device="cpu")
+        trainer = Trainer(model, ModelConfig(**SMALL),
+                          TrainConfig(batch_size=4, ckpt_after_epoch=0,
+                                      **train),
+                          graphs, np.array([g.y[0] for g in graphs]),
+                          workdir=str(workdir), device="cpu")
+        trainer.fit(epochs=1)
+        _, budgets, _ = trainer.plan(trainer.train_idx)
+        batches = trainer.batches(trainer.train_idx)
+        n_steps = len(batches)
+        assert n_steps > 1
+        for b, bud in zip(batches, budgets):
+            assert b.y.shape[0] == bud.n_graph > 0
+            assert (b.tiers, b.n_hi, b.d_lo) == (bud.tiers, bud.n_hi,
+                                                 bud.n_deg_lo)
+    (record,) = [json.loads(line) for line in
+                 (workdir / "metrics.jsonl").read_text().splitlines()]
+    assert np.isfinite(record["loss"]) and record["bad_steps"] == 0
+    assert 0 < record["occupancy_pairs"] <= 1
+    if n_steps is not None:
+        assert record["step"] == n_steps
 
 
 # ---- configs, batching, checkpoints, weights ------------------------------
@@ -470,7 +507,7 @@ def test_pad_graphs_targets_match_reference():
     targets = np.arange(5, dtype=np.float32) * 1.5
     bud = pad_budget_for(graphs, 6)
     got = pad_graphs(graphs, bud, n_graph=6, targets=targets)
-    ref = jbatching.pad_graphs(graphs, _jbudgets(bud), n_graph=6,
+    ref = jbatching.pad_graphs(graphs, jbatching.Budgets(*bud), n_graph=6,
                                targets=targets, with_triplets=False)
     np.testing.assert_array_equal(got.y, np.asarray(ref.y))
     assert got.y[:5].tolist() == targets.tolist()

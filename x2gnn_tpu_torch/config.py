@@ -50,8 +50,8 @@ class ModelConfig:
 class TrainConfig:
     """Optimization hyperparameters (x2gnn_tpu/config.py:76-153; the
     reference's config.json:11-30, train_ema.py:40-53, trainer.py:22-48).
-    The port's Trainer raises NotImplementedError on the options it does
-    not run yet: bucket_shapes, pack_budget, pack_mixed, accum_steps > 1."""
+    The port raises NotImplementedError on accum_steps > 1, which it does
+    not run yet."""
 
     target: int = 7                       # QM9 property index (7 = U0)
     batch_size: int = 32

@@ -29,9 +29,10 @@ def _round_up_pow2(v: int, floor: int = 8) -> int:
 def quantize_budgets(b: Budgets) -> Budgets:
     """Round budgets up to a geometric grid (powers of two; degree to a
     multiple of 8) so request compositions map to a small, closed set of
-    shapes (x2gnn_tpu/infer.py:42-49)."""
+    shapes (x2gnn_tpu/infer.py:42-49). The degree split and the tiers are
+    dropped: serving runs one attention window per layer."""
     return Budgets(_round_up_pow2(b.n_node), _round_up_pow2(b.n_edge),
-                   _round_up_pow2(b.n_trip), -(-b.n_deg // 8) * 8)
+                   _round_up_pow2(b.n_trip), -(-b.n_deg // 8) * 8, 0, 0)
 
 
 class Predictor:

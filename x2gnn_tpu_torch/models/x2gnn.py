@@ -5,6 +5,11 @@ variant 'v1', atomwise readout, float32, on the fused-kernel formulation
 of the reference (`z` = clip(cos/norm) and masked atom-id tables, the
 kernel computes the Legendre harmonics) on every device. Anything else
 raises NotImplementedError until its slice.
+
+A batch's degree tiers or two-tier split (`GraphBatch.tiers`, `n_hi`,
+`d_lo`) choose the attention windows of every conv, one kernel call each
+(`attention_windows`). The reference honours them on its Pallas branch
+only; the port always runs the kernel formulation, so it always does.
 """
 
 from __future__ import annotations
@@ -28,6 +33,38 @@ from x2gnn_tpu_torch.ops.basis import poly_envelope, sbf_radial_part
 from x2gnn_tpu_torch.ops.segment import segment_sum
 
 
+class AttnWindow(NamedTuple):
+    """One attention call: atom rows [b0, b1) in a di x dk window, with the
+    layer-invariant tables cut to it (contiguous, as the kernels take)."""
+
+    b0: int
+    b1: int
+    di: int
+    dk: int
+    rbf_env_out: torch.Tensor  # (b1-b0, dk, L*K)
+    z: torch.Tensor            # (b1-b0, di, dk)
+    a_ids: torch.Tensor        # (b1-b0, di)
+    b_ids: torch.Tensor        # (b1-b0, dk)
+
+
+def attention_windows(N: int, D: int, n_hi: int, d_lo: int,
+                      tiers: tuple) -> list:
+    """(b0, b1, di, dk) of each attention call over degree-sorted atoms
+    (x2gnn_tpu/nn/conv.py:293-371): one per non-empty tier; else, with a
+    two-tier split, (0, n_hi, D, D) and (n_hi, N, d_lo, d_lo); else one
+    (0, N, D, D). The windows' rows cover [0, N) in order."""
+    if tiers:
+        out, b0 = [], 0
+        for (b1, di, dk) in tiers:
+            if b1 > b0:
+                out.append((b0, b1, di, dk))
+                b0 = b1
+        return out
+    if 0 < n_hi < N and 0 < d_lo < D:
+        return [(0, n_hi, D, D), (n_hi, N, d_lo, d_lo)]
+    return [(0, N, D, D)]
+
+
 class BlockedGeometry(NamedTuple):
     """Per-batch geometry in the blocked layout, shared by every layer."""
 
@@ -37,15 +74,15 @@ class BlockedGeometry(NamedTuple):
     out2in: torch.Tensor       # (N, D) flat in-slot of each out-slot's edge
     in2out: torch.Tensor       # (N*D,) flat out-slot of each in-slot's edge
     mask_flat: torch.Tensor    # (N*D,) real in-slots
-    rbf_env_out: torch.Tensor  # (N, D, L*K) radial sbf factor, out-table
-    z: torch.Tensor            # (N, D, D) cos(angle) of in/out edge pairs
-    a_ids: torch.Tensor        # (N, D) int32 in-edge source atom, -1 pad
-    b_ids: torch.Tensor        # (N, D) int32 out-edge dest atom, -2 pad
+    windows: tuple             # AttnWindow of each attention call
 
 
 def blocked_geometry(batch: GraphBatch, cfg: ModelConfig) -> BlockedGeometry:
-    """Edge lengths, envelope, radial sbf factors and the pair tables of
-    the fused kernel (x2gnn_tpu/models/x2gnn.py:60-167, Pallas branch)."""
+    """Edge lengths, envelope, and the fused kernel's pair tables
+    (x2gnn_tpu/models/x2gnn.py:60-167, Pallas branch: the out-table's
+    radial sbf factor, cos(angle) of in/out edge pairs, the in-edge source
+    and out-edge destination atom ids, -1/-2 at pad slots), cut to the
+    batch's attention windows."""
     N, D = batch.in_edges.shape
     pos = batch.positions
     edge_mask = batch.in_mask
@@ -75,9 +112,16 @@ def blocked_geometry(batch: GraphBatch, cfg: ModelConfig) -> BlockedGeometry:
     z = torch.clamp(cos_a / norm, -1.0, 1.0)
     a_ids = torch.where(batch.in_mask, in_src, -1).to(torch.int32)
     b_ids = torch.where(batch.out_mask, out_dst, -2).to(torch.int32)
+    windows = tuple(
+        AttnWindow(b0, b1, di, dk,
+                   rbf_env_out[b0:b1, :dk].contiguous(),
+                   z[b0:b1, :di, :dk].contiguous(),
+                   a_ids[b0:b1, :di].contiguous(),
+                   b_ids[b0:b1, :dk].contiguous())
+        for b0, b1, di, dk in attention_windows(N, D, batch.n_hi,
+                                                batch.d_lo, batch.tiers))
     return BlockedGeometry(d_safe, env, in_src, out2in, in2out, mask_flat,
-                           rbf_env_out.contiguous(), z.contiguous(),
-                           a_ids.contiguous(), b_ids.contiguous())
+                           windows)
 
 
 def _check_config(cfg: ModelConfig) -> None:
@@ -172,9 +216,8 @@ class X2GNN(nn.Module):
         for i in range(cfg.conv_layers):
             res0 = out
             out = self._layer(f"conv_{i}")(
-                out.reshape(N, D, cfg.in_channels), node_rbf,
-                geo.rbf_env_out, edge_attr, geo.out2in, geo.in2out,
-                mask_flat, geo.z, geo.a_ids, geo.b_ids)
+                out.reshape(N, D, cfg.in_channels), node_rbf, edge_attr,
+                geo.out2in, geo.in2out, mask_flat, geo.windows)
             out = out.reshape(-1, cfg.in_channels)
             out = self._layer(f"norm_{i}")(out, gid_flat, num_graphs,
                                            mask=mask_flat)

@@ -1,12 +1,14 @@
 """Atom-blocked line-graph attention convolution
-(x2gnn_tpu/nn/conv.py:187-408), single-window fused path only.
+(x2gnn_tpu/nn/conv.py:187-408), fused-kernel path.
 
 Every per-edge activation lives in the in-table blocked layout (N, D, C):
 row j holds atom j's incoming edges. The gated source features are
 re-indexed into the out-table once, the key and value projections run in
 the out layout (:257-271), and the fused attention runs as one call of
-`ops.blocked_attn.blocked_attention` (:365-371), then the skip projection
-is added (:397-402).
+`ops.blocked_attn.blocked_attention` per attention window of the batch
+(:293-371: one per degree tier, the two-tier split's two, or one), each
+output padded back to D query slots and the rows concatenated; then the
+skip projection is added (:397-402).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from x2gnn_tpu_torch.nn.init import glorot_orthogonal_
@@ -58,14 +61,15 @@ class BlockedEdgeAttentionConv(nn.Module):
         self.lin_value = TorchDense(channels, channels, generator=g)
         self.lin_skip = TorchDense(channels, channels, generator=g)
 
-    def forward(self, x_blk, rbf_blk, rbf_env_out, atom_edge_attr, out2in,
-                in2out, in_mask_flat, z, a_ids, b_ids):
+    def forward(self, x_blk, rbf_blk, atom_edge_attr, out2in, in2out,
+                in_mask_flat, windows):
         """x_blk: (N, D, C) in-layout line-graph node features; rbf_blk:
-        (N, D, K) radial basis (in-layout); rbf_env_out: (N, D, L*K) radial
-        sbf factor of the out-table rows; atom_edge_attr: (N, emb);
+        (N, D, K) radial basis (in-layout); atom_edge_attr: (N, emb);
         out2in: (N, D) flat in-slot of each out-slot's edge; in2out:
-        (N*D,) its inverse; in_mask_flat: (N*D,) real in-slots;
-        z/a_ids/b_ids: cos(angle) and masked atom-id tables."""
+        (N*D,) its inverse; in_mask_flat: (N*D,) real in-slots; windows:
+        the batch's `models.x2gnn.AttnWindow`s, whose rows cover [0, N) in
+        order, each with its cut of the radial sbf factor of the out-table
+        rows, cos(angle) and the masked atom-id tables."""
         N, D, _ = x_blk.shape
         x_src = x_blk * self.lin_rbf(rbf_blk)
         q = self.lin_query(x_blk)
@@ -77,9 +81,16 @@ class BlockedEdgeAttentionConv(nn.Module):
                                      out2in, in2out, in_mask_flat)
         k_out = self.lin_key(x_src_out)
         v_out = self.lin_value(x_src_out)
-        out = blocked_attention(
-            q.contiguous(), k_out.contiguous(), v_out.contiguous(),
-            e_atom.contiguous(), rbf_env_out, self.lin_sbf.kernel,
-            self.lin_sbf.bias, z, a_ids, b_ids, heads=self.heads,
-            num_radial=self.sbf_k)
+        # rows of a window beyond its di query slots hold no in-edge (the
+        # degree sort guarantees it), so their output is the zero padding
+        pieces = []
+        for w in windows:
+            rows = slice(w.b0, w.b1)
+            o = blocked_attention(
+                q[rows, :w.di].contiguous(), k_out[rows, :w.dk].contiguous(),
+                v_out[rows, :w.dk].contiguous(), e_atom[rows].contiguous(),
+                w.rbf_env_out, self.lin_sbf.kernel, self.lin_sbf.bias, w.z,
+                w.a_ids, w.b_ids, heads=self.heads, num_radial=self.sbf_k)
+            pieces.append(F.pad(o, (0, 0, 0, D - w.di)) if w.di < D else o)
+        out = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
         return out + self.lin_skip(x_blk)

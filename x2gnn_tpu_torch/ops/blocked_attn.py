@@ -29,6 +29,7 @@ and bias; rbf and z are geometry and get none, as in the reference
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -200,7 +201,8 @@ def _raise_on(lib, err, name, shape):
 def blocked_attention_fwd(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids,
                           heads: int, num_radial: int) -> torch.Tensor:
     """The forward: the CUDA kernel on CUDA tensors, laid out by
-    `fwd_plan` (counted in `blocked_attention.launches`; `out` from
+    `fwd_plan` (counted in `blocked_attention.launches`, and per (N, DI,
+    DK) in `blocked_attention.by_shape`; `out` from
     torch.empty, every slot of which the kernel writes), the plain version
     on CPU tensors."""
     if q.device.type == "cpu":
@@ -224,6 +226,7 @@ def blocked_attention_fwd(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids,
     _raise_on(lib, err, "blocked_attn_fwd",
               f"N={N}, DI={DI}, DK={DK}, HC={HC}, L={L}, {plan}")
     blocked_attention.launches += 1
+    blocked_attention.by_shape[(N, DI, DK)] += 1
     return out
 
 
@@ -403,7 +406,8 @@ def blocked_attention_bwd_partials(q, k, v, e_atom, rbf, w_sbf, bias, z,
                                    a_ids, b_ids, g, heads: int,
                                    num_radial: int, *, out):
     """The backward kernel alone, on CUDA tensors (counted in
-    `blocked_attention_bwd_partials.launches`): (dq, dk, dv, de, partial),
+    `blocked_attention_bwd_partials.launches`, and per (N, DI, DK) in its
+    `by_shape`): (dq, dk, dv, de, partial),
     with partial (bwd_plan(...).grid, (L*K+1)*HC) each CTA's share of dW
     (row-major, L*K x HC) followed by its share of db."""
     if q.device.type != "cuda":
@@ -441,6 +445,7 @@ def blocked_attention_bwd_partials(q, k, v, e_atom, rbf, w_sbf, bias, z,
     _raise_on(lib, err, "blocked_attn_bwd",
               f"N={N}, DI={DI}, DK={DK}, HC={HC}, L={L}, K={K}, {plan}")
     blocked_attention_bwd_partials.launches += 1
+    blocked_attention_bwd_partials.by_shape[(N, DI, DK)] += 1
     return dq, dk, dv, de, partial
 
 
@@ -508,10 +513,13 @@ def blocked_attention(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids,
 
 
 def reset_launch_counts() -> None:
-    """Set the three kernel launch counts to 0."""
+    """Set the three kernel launch counts, and the forward's and the
+    backward's counts per shape, to 0."""
     blocked_attention.launches = 0
     blocked_attention_bwd_partials.launches = 0
     reduce_partials.launches = 0
+    blocked_attention.by_shape = collections.Counter()
+    blocked_attention_bwd_partials.by_shape = collections.Counter()
 
 
 reset_launch_counts()

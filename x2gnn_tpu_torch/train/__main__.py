@@ -3,6 +3,9 @@ train.py (:168-358):
 
     python -m x2gnn_tpu_torch.train --synthetic 512 --epochs 20 \\
         --workdir runs/smoke                     # on the card
+    python -m x2gnn_tpu_torch.train --synthetic 512 --epochs 20 \\
+        --pack-mixed --fused-update --scheduler plateau \\
+        --workdir runs/packed        # the flagship recipe's batching
     python -m x2gnn_tpu_torch.train --device cpu --synthetic 24 \\
         --epochs 2 --batch-size 8 --workdir /tmp/run   # on the CPU
 
@@ -24,7 +27,6 @@ import sys
 
 # flags of the reference CLI whose paths the port does not run yet
 _UNPORTED = {
-    "pack_mixed": ("--pack-mixed", "A8"),
     "data_parallel": ("--data-parallel", "A10"),
     "edge_partition": ("--edge-partition", "A10"),
     "resume": ("--resume", "A7"),
@@ -63,7 +65,15 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "kernels)")
-    p.add_argument("--pack-mixed", action="store_true")
+    p.add_argument("--bucket-shapes", type=int, default=None,
+                   help="size-bucketed batch budgets: N classes of batch "
+                        "shapes instead of one worst-case shape")
+    p.add_argument("--pack-budget", action="store_true",
+                   help="with --bucket-shapes: fill each batch to its "
+                        "class budget (variable molecules per step)")
+    p.add_argument("--pack-mixed", action="store_true",
+                   help="mixed first-fit-decreasing packing: one batch "
+                        "shape, every batch spans the size distribution")
     p.add_argument("--data-parallel", action="store_true")
     p.add_argument("--edge-partition", default=None)
     p.add_argument("--resume", default=None)
@@ -107,6 +117,9 @@ def main(argv=None) -> int:
                  "warmup_steps": args.warmup_steps,
                  "ema_decay": args.ema_decay, "scheduler": args.scheduler,
                  "patience": args.patience,
+                 "bucket_shapes": args.bucket_shapes,
+                 "pack_budget": True if args.pack_budget else None,
+                 "pack_mixed": True if args.pack_mixed else None,
                  "fused_update": True if args.fused_update else None}
     tcfg = dataclasses.replace(
         tcfg, **{k: v for k, v in overrides.items() if v is not None})

@@ -99,7 +99,7 @@ class Optimizer:
         if cfg.accum_steps > 1:
             raise NotImplementedError(
                 "accum_steps > 1 (gradient accumulation) is not ported yet "
-                "(ROADMAP A8)")
+                "(ROADMAP A8b)")
         if cfg.scheduler not in ("warmup_exp", "plateau"):
             raise ValueError(f"unknown scheduler {cfg.scheduler!r}")
         self.cfg = cfg

@@ -4,9 +4,16 @@ training with a per-step schedule, masked losses, best-val checkpoints,
 
 Batches are fixed-budget (`pad_budget_for` over the whole dataset, or the
 caller's `budgets`) and taken in split order every epoch, as the
-reference trainer does when packing is off (:382-389). They are cached on
-the device across epochs (as the reference does for datasets under ~20k
-molecules), so each is copied to the card once per run.
+reference trainer does when packing is off (:382-389); or planned
+(:359-381): `pack_mixed` bins each split by mixed first-fit-decreasing
+packing into one shape, `bucket_shapes` groups it by size into a few
+shapes (`pack_budget` fills each batch to its class budget), and the
+training batches are then visited in a per-(seed, epoch) shuffled order
+(:332-345). With the default budgets, and under `pack_mixed`, batches are
+degree-sorted and carry degree tiers, so each conv runs one attention
+kernel per tier. Batches are cached on the device across epochs (as the
+reference does for datasets under ~20k molecules), so each is copied to
+the card once per run.
 Each step runs the model forward, autograd's backward (the attention's
 through the CUDA backward kernel), then clip, Adam and the EMA, with the
 non-finite skip decided on the device. The parameters are updated in
@@ -26,7 +33,8 @@ import torch
 
 from x2gnn_tpu_torch.config import ModelConfig, TrainConfig, dump_configs
 from x2gnn_tpu_torch.data.batching import (
-    Budgets, GraphBatch, batch_iterator, pad_budget_for)
+    Budgets, GraphBatch, batch_iterator, mixed_packed_plan, pad_budget_for,
+    pad_graphs, size_bucketed_plan)
 from x2gnn_tpu_torch.device import resolve_device
 from x2gnn_tpu_torch.train.checkpoint import save_checkpoint
 from x2gnn_tpu_torch.train.ema import EmaState, ema_init, unflatten
@@ -92,16 +100,13 @@ class Trainer:
         device="cuda",
     ):
         """`std`: MAE report calibration (trainer.py:57). `budgets`: the
-        padding budgets of every batch (default: `pad_budget_for` over
-        all graphs)."""
+        padding budgets of every fixed-budget batch, and the base of the
+        packing planners (default: `pad_budget_for` over all graphs)."""
         unported = [
-            (train_cfg.pack_mixed, "pack_mixed (mixed-FFD packing)", "A8"),
-            (train_cfg.bucket_shapes, "bucket_shapes", "A8"),
-            (train_cfg.pack_budget, "pack_budget", "A8"),
             (mesh is not None, "a device mesh (data parallelism)", "A10"),
             (edge_partition is not None, "edge_partition", "A10"),
-            (feat_dtype != "float32", f"feat_dtype={feat_dtype!r}", "A8"),
-            (model_cfg.dropout > 0, "attention dropout", "A8"),
+            (feat_dtype != "float32", f"feat_dtype={feat_dtype!r}", "A8b"),
+            (model_cfg.dropout > 0, "attention dropout", "A8b"),
         ]
         for bad, what, item in unported:
             if bad:
@@ -123,6 +128,15 @@ class Trainer:
             n, train_cfg.random_seed, (d0, d1))
         self.budgets = budgets or pad_budget_for(
             self.graphs, train_cfg.batch_size)
+        # mixed-FFD packing supersedes the per-class planner (:141-150)
+        self.pack_mixed = bool(train_cfg.pack_mixed)
+        self.bucket_shapes = 0 if self.pack_mixed else int(
+            train_cfg.bucket_shapes)
+        self.pack_budget = (not self.pack_mixed) and bool(
+            train_cfg.pack_budget)
+        if self.pack_budget and not self.bucket_shapes:
+            raise ValueError("pack_budget requires bucket_shapes >= 1 "
+                             "(packing fills the per-class budgets)")
         self._batch_cache = {}
         self._totals = {}
 
@@ -170,12 +184,25 @@ class Trainer:
                           ema_init(params, flat=self._flat is not None),
                           zero, zero.clone())
 
-    def _record_totals(self, key, idx):
-        if key in self._totals:
-            return
+    @property
+    def packed(self) -> bool:
+        """Whether batches come from a packing or bucketing plan."""
+        return bool(self.pack_mixed or self.bucket_shapes)
+
+    def plan(self, idx):
+        """(chunks, budgets, stats) of the planner over the molecules
+        `idx` (trainer.py:362-369)."""
+        if self.pack_mixed:
+            return mixed_packed_plan(self.graphs, idx, self.tcfg.batch_size,
+                                     self.budgets)
+        return size_bucketed_plan(self.graphs, idx, self.tcfg.batch_size,
+                                  self.bucket_shapes, self.budgets,
+                                  pack=self.pack_budget)
+
+    def _fixed_totals(self, idx) -> dict:
         steps = -(-len(idx) // self.tcfg.batch_size)
         b = self.budgets
-        self._totals[key] = {
+        return {
             "real": (sum(self.graphs[i].num_atoms for i in idx),
                      sum(self.graphs[i].num_edges for i in idx),
                      sum(self.graphs[i].num_triplets for i in idx)),
@@ -189,28 +216,52 @@ class Trainer:
         return (len(idx), hash(np.ascontiguousarray(idx).tobytes()))
 
     def batches(self, idx) -> List[GraphBatch]:
-        """The device batches of the molecules `idx`, in order, made once
-        and cached."""
+        """The device batches of the molecules `idx`, in plan order (split
+        order for fixed budgets), made once and cached; the split's
+        real/padded totals are recorded beside them."""
         key = self._cache_key(idx)
         if key not in self._batch_cache:
-            self._record_totals(key, idx)
             idx = np.asarray(idx)
-            self._batch_cache[key] = [b.to(self.device) for b in
-                                      batch_iterator(
-                [self.graphs[i] for i in idx], self.tcfg.batch_size,
-                budgets=self.budgets, targets=self.targets[idx])]
+            if self.packed:
+                chunks, budgets, stats = self.plan(idx)
+                host = (pad_graphs(
+                    [self.graphs[i] for i in chunk], bud,
+                    n_graph=bud.n_graph or self.tcfg.batch_size,
+                    targets=self.targets[chunk])
+                    for chunk, bud in zip(chunks, budgets))
+            else:
+                stats = self._fixed_totals(idx)
+                host = batch_iterator(
+                    [self.graphs[i] for i in idx], self.tcfg.batch_size,
+                    budgets=self.budgets, targets=self.targets[idx])
+            self._totals[key] = stats
+            self._batch_cache[key] = [b.to(self.device) for b in host]
         return self._batch_cache[key]
 
     def steps_per_epoch(self) -> int:
-        return max(-(-len(self.train_idx) // self.tcfg.batch_size), 1)
+        """Optimizer steps per epoch: the plan's batch count when packed
+        (trainer.py:461-486)."""
+        return max(len(self.batches(self.train_idx)), 1)
+
+    def train_order(self, epoch: int) -> List[GraphBatch]:
+        """The training batches in the order epoch `epoch` visits them:
+        split order for fixed budgets; for planned batches a permutation
+        seeded by (random_seed, epoch), since the plans are size-sorted
+        (trainer.py:332-345)."""
+        batches = self.batches(self.train_idx)
+        if not self.packed:
+            return batches
+        rs = np.random.RandomState(
+            (self.tcfg.random_seed * 1000003 + epoch) % (2 ** 31))
+        return [batches[j] for j in rs.permutation(len(batches))]
 
     # ---- loops -----------------------------------------------------------
-    def run_epoch(self, state: TrainState):
-        """One pass over the train split in its fixed order; returns
+    def run_epoch(self, state: TrainState, epoch: int = 0):
+        """One pass over the train split in `train_order(epoch)`; returns
         (state, mean loss per molecule). The losses stay on the device
         until the epoch ends (one transfer, no per-step sync)."""
         losses, counts = [], []
-        for batch in self.batches(self.train_idx):
+        for batch in self.train_order(epoch):
             state, loss = self.train_step(state, batch)
             losses.append(loss)
             counts.append(batch.graph_mask.sum())
@@ -251,7 +302,7 @@ class Trainer:
         best_val, test_err = None, None
         for epoch in range(epochs):
             t0 = time.time()
-            state, loss = self.run_epoch(state)
+            state, loss = self.run_epoch(state, epoch)
             val_err = self.evaluate(state, self.val_idx)
             if plateau is not None:
                 new_scale = plateau.step(val_err)
@@ -300,6 +351,11 @@ class Trainer:
                     "occupancy_triplets": real_t / max(pad_t, 1),
                     "budget_shapes": tot["shapes"],
                 })
+                if "pairs" in tot:
+                    # pair slots: what the attention kernels' work scales
+                    # with (the tier windows of a planned batch)
+                    real_p, cap_p = tot["pairs"]
+                    record["occupancy_pairs"] = real_p / max(cap_p, 1)
             if plateau_logged is not None:
                 record["lr_scale"] = plateau_logged
             with open(jsonl_path, "a") as f:
