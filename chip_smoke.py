@@ -57,7 +57,30 @@ Phases, each of which raises on failure (exit code != 0):
      (tiers and split removed), and of the fixed-budget batches with their
      tiers and on the one-window path's batches, each pair in turns, with
      the launches per step; training molecules/s per epoch of the three
-     runs.
+     runs;
+  8. determinism, resume and a trained run's files, with the flagship
+     recipe as written on the same 512 molecules: (a) the training step
+     on the first packed batch (N=744, D=32, 8 tiers) repeated by
+     utils/determinism.py::check_train_step_determinism must be bitwise
+     equal (the earlier index_add_ segment sums are checked beside it and
+     reported), and two predict calls on the 256 molecules too, after
+     segment_sum itself on the card (against the CPU, a rerun bitwise, a
+     NaN row spoiling its own segment only); the
+     packed step's device busy time with the fixed-order segment sums and
+     with index_add_, in turns; (b) 2 epochs straight against 1 epoch,
+     Trainer.restore of its ckpt_last.pt in a fresh Trainer and 1 more:
+     the metrics records equal field for field (but the wall clock's),
+     and equal to phase 6a's, parameters, EMA and moments bitwise, the
+     resumed epoch's launches counted, the restore timed; (c) a graph
+     cache of the molecules, `python -m x2gnn_tpu_torch.train --data-npz
+     ... --epochs 1` and then `--auto-resume --epochs 2` as subprocesses,
+     `python -m x2gnn_tpu_torch.evaluate` on the run (its seconds, one
+     cold pass), its MAE against Predictor.from_run's within 1e-6
+     relative, and evaluate's loop timed warm in-process; (d) from_run
+     timed, serving the 256 molecules with 4 launches per batch, bitwise
+     equal to a Predictor on the EMA weights that Trainer.restore gives,
+     one batch against the CPU; (e) the EMA weights exported to a
+     reference-named .pth and imported into a fresh model, bitwise.
 Each row of the kernels line takes its launches from a path that launches
 its shape, with the counts zeroed just before that path.
 The line before the last is a JSON object {"kernels": [...]}; the last
@@ -66,6 +89,7 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -749,6 +773,382 @@ def step_ms(trainer, state, batches, reps: int = 20):
             reps + 3)
 
 
+# ---- phase 8: determinism, resume, caches, the CLIs, from_run, .pth ----
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+FLAGSHIP_ARGS = os.path.join(REPO, "runs", "flagship_r5_regression",
+                             "args.json")
+
+
+def index_add_segment_sum(data, segment_ids, num_segments, mask=None):
+    """The segment sum of the earlier slices (`index_add_`, float atomics
+    on CUDA), kept here only to compare the packed step's device time and
+    run-to-run bits with the fixed-order select-and-sum of
+    ops/segment.py."""
+    import torch
+    if mask is not None:
+        data = torch.where(
+            mask.reshape(mask.shape + (1,) * (data.dim() - mask.dim())),
+            data, 0.0)
+    out = data.new_zeros((num_segments,) + data.shape[1:])
+    return out.index_add_(0, segment_ids, data)
+
+
+@contextlib.contextmanager
+def segment_sums(fn):
+    """Run the model's three segment-sum callers (the graph norm, the
+    molecule sum, the non-blocked readout) through `fn`."""
+    import x2gnn_tpu_torch.models.x2gnn as model_mod
+    import x2gnn_tpu_torch.nn.norm as norm_mod
+    import x2gnn_tpu_torch.nn.readout as readout_mod
+    mods = (model_mod, norm_mod, readout_mod)
+    saved = [m.segment_sum for m in mods]
+    for m in mods:
+        m.segment_sum = fn
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, saved):
+            m.segment_sum = f
+
+
+def busy_ms(trainer, state, batches, steps: int = 5):
+    """(device busy ms per step, wall ms per step, state) of `steps`
+    training steps on cached batches traced by torch.profiler, after 3
+    steps of warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from x2gnn_tpu_torch.profile_serving import device_rows
+
+    for i in range(3):
+        state, _ = trainer.train_step(state, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            state, _ = trainer.train_step(state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(r[0] for r in device_rows(prof)) / 1e3
+    return busy / steps, wall / steps, state
+
+
+def read_records(workdir):
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def resumed_record_diffs(straight, resumed, first_resumed):
+    """Fields of two runs' metrics.jsonl records that differ, bitwise, but
+    the wall-clock ones (seconds, *_per_sec). A resumed run's test_mae
+    starts again at None, as the reference's does: from record
+    `first_resumed` on, a None test_mae on an epoch that did not improve on
+    best_val is not a difference."""
+    diffs = []
+    if len(straight) != len(resumed):
+        return [f"{len(straight)} records against {len(resumed)}"]
+    for i, (a, b) in enumerate(zip(straight, resumed)):
+        if a.keys() != b.keys():
+            diffs.append(f"record {i}: keys {sorted(a)} vs {sorted(b)}")
+            continue
+        for key in a:
+            if key == "seconds" or key.endswith("_per_sec"):
+                continue
+            if (key == "test_mae" and i >= first_resumed
+                    and b[key] is None and b["val_mae"] > b["best_val_mae"]):
+                continue
+            if a[key] != b[key]:
+                diffs.append(f"record {i}: {key} {a[key]!r} vs {b[key]!r}")
+    return diffs
+
+
+def flagship_trainer(mcfg, tcfg, graphs, device, workdir, seed=0):
+    import numpy as np
+    import torch
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    from x2gnn_tpu_torch.train.trainer import Trainer
+    model = X2GNN(mcfg, torch.Generator().manual_seed(seed), device=device)
+    return Trainer(model, mcfg, tcfg, graphs,
+                   np.array([g.y[0] for g in graphs], np.float32),
+                   workdir=workdir, device=device)
+
+
+def check_segment_sum_on_card(device):
+    """ops/segment.py::segment_sum on the card at the graph norm's shape
+    (23,808 rows into 48 slots) and the molecule sum's with features
+    (744 x 128 into 48), unsorted ids, a quarter of the rows masked: equal
+    to the CPU's sum within rtol 1e-5 / atol 1e-4, bitwise equal on a
+    rerun, and a NaN in one unmasked row spoils its own segment only."""
+    import numpy as np
+    import torch
+    from x2gnn_tpu_torch.ops.segment import segment_sum
+
+    rng = np.random.default_rng(8)
+    for shape in ((23808,), (744, 128)):
+        data = rng.normal(size=shape).astype(np.float32)
+        ids = rng.integers(0, 48, size=shape[0])
+        mask = rng.random(shape[0]) > 0.25
+        row = int(np.flatnonzero(mask)[0])
+        data[row] = np.nan
+        args = [torch.from_numpy(a) for a in (data, ids, mask)]
+        cpu = segment_sum(args[0], args[1], 48, args[2]).numpy()
+        card = [segment_sum(*(a.to(device) for a in args[:2]), 48,
+                            args[2].to(device)).cpu().numpy()
+                for _ in range(2)]
+        bad = ~np.isfinite(card[0]).reshape(48, -1).all(1)
+        same = np.array_equal(card[0], card[1], equal_nan=True)
+        log(f"[segment sums] {shape} into 48: card vs CPU max_abs "
+            f"{np.nanmax(np.abs(card[0] - cpu)):.3e}, rerun "
+            f"{'bitwise equal' if same else 'DIFFERS'}, "
+            f"non-finite segments {np.flatnonzero(bad).tolist()} "
+            f"(the NaN row's: {int(ids[row])})")
+        np.testing.assert_allclose(card[0], cpu, rtol=1e-5, atol=1e-4)
+        if (not same
+                or np.flatnonzero(bad).tolist() != [int(ids[row])]):
+            raise AssertionError(f"segment_sum on the card at {shape}")
+
+
+def check_step_determinism(mcfg, tcfg, graphs, qm9, device, card):
+    """Phase 8a: check_train_step_determinism on the first packed batch,
+    with the fixed-order segment sums (must be bitwise) and with the
+    earlier index_add_ ones (reported); two Predictor.predict calls on the
+    QM9-scale molecules (bitwise); the packed step's device busy time with
+    either segment sum, in turns."""
+    import numpy as np
+    import torch
+    from x2gnn_tpu_torch.infer import Predictor
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    from x2gnn_tpu_torch.utils.determinism import (
+        check_train_step_determinism)
+
+    trainer = flagship_trainer(mcfg, tcfg, graphs, device, "unused")
+    batch = trainer.batches(trainer.train_idx)[0]
+    shape = tuple(batch.in_edges.shape)
+    log(f"[determinism] first packed batch N, D = {shape}, "
+        f"{len(batch.tiers)} tiers {batch.tiers}")
+    if shape != (744, 32) or len(batch.tiers) != 8:
+        raise AssertionError(f"determinism: first packed batch {shape}, "
+                             f"tiers {batch.tiers}")
+    check_segment_sum_on_card(device)
+    report = check_train_step_determinism(trainer, repeats=2)
+    log(f"[determinism] train step, 2 repeats, select segment sums: "
+        f"mismatches {json.dumps(report['mismatches'])}")
+    if not report["deterministic"]:
+        raise AssertionError("determinism: the training step differs "
+                             "between two runs")
+    with segment_sums(index_add_segment_sum):
+        old = check_train_step_determinism(trainer, repeats=2)
+    log(f"[determinism] the same with index_add_ segment sums: "
+        f"{len(old['mismatches'])} mismatching tensors "
+        f"{json.dumps(old['mismatches'][:4])}")
+
+    model = X2GNN(mcfg, torch.Generator().manual_seed(0), device=device)
+    pred = Predictor(mcfg, model, batch_size=32, device=device)
+    a, b = pred.predict(qm9), pred.predict(qm9)
+    log(f"[determinism] two predict calls on {len(qm9)} molecules: "
+        f"{'bitwise equal' if np.array_equal(a, b) else 'DIFFER'}")
+    if not np.array_equal(a, b):
+        raise AssertionError("determinism: predictions differ")
+
+    batches = trainer.batches(trainer.train_idx)
+    state = trainer.init_state()
+    for name, fn in (("select", None), ("index_add_", index_add_segment_sum),
+                     ("index_add_", index_add_segment_sum),
+                     ("select", None)):
+        if fn is None:
+            busy, wall, state = busy_ms(trainer, state, batches)
+        else:
+            with segment_sums(fn):
+                busy, wall, state = busy_ms(trainer, state, batches)
+        log(f"[segment sums] {card}: {name}: packed step device busy "
+            f"{busy:.3f} ms, wall {wall:.3f} ms per step (5 steps traced)")
+
+
+def check_resume(mcfg, tcfg, graphs, device, card, reference_records):
+    """Phase 8b: 2 epochs straight in workdir A; 1 epoch in B, then a
+    fresh Trainer restoring B/ckpt_last.pt and 1 more: B's records equal
+    A's (and A's those of phase 6a's run of the same recipe), the final
+    parameters, EMA and optimizer state bitwise; the resumed epoch
+    launches conv_layers x its windows. Returns the steps per epoch."""
+    import torch
+    from x2gnn_tpu_torch.ops.blocked_attn import reset_launch_counts
+    from x2gnn_tpu_torch.utils.determinism import tree_bitwise_diff
+
+    with tempfile.TemporaryDirectory() as root:
+        wa, wb = os.path.join(root, "a"), os.path.join(root, "b")
+        a = flagship_trainer(mcfg, tcfg, graphs, device, wa)
+        state_a, _ = a.fit(2)
+        flagship_trainer(mcfg, tcfg, graphs, device, wb).fit(1)
+        b = flagship_trainer(mcfg, tcfg, graphs, device, wb, seed=1)
+        b.steps_per_epoch()                 # batches built before timing
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = b.restore(os.path.join(wb, "ckpt_last.pt"))
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        log(f"[resume] {card}: Trainer.restore of ckpt_last.pt "
+            f"{restore_ms:.1f} ms (step {int(restored.step)})")
+        reset_launch_counts()
+        state_b, _ = b.fit(1, state=restored)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        rec_a, rec_b = read_records(wa), read_records(wb)
+    for r in rec_b:
+        log(f"[resume] B epoch {r['epoch']}: loss {r['loss']!r} val_mae "
+            f"{r['val_mae']!r} best {r['best_val_mae']!r} test_mae "
+            f"{r['test_mae']!r} step {r['step']}")
+    diffs = (resumed_record_diffs(rec_a, rec_b, 1)
+             + [f"phase 6a: {d}" for d in resumed_record_diffs(
+                 reference_records, rec_a, len(rec_a))]
+             + tree_bitwise_diff(state_a, state_b))
+    log(f"[resume] 1 + 1 epochs against 2 straight: differences "
+        f"{json.dumps(diffs)}")
+    if diffs:
+        raise AssertionError("resume: the resumed run differs")
+    L = mcfg.conv_layers
+    train_w = n_windows(b.batches(b.train_idx))
+    improved = rec_b[-1]["val_mae"] == rec_b[-1]["best_val_mae"]
+    eval_w = (2 * n_windows(b.batches(b.val_idx))
+              + improved * n_windows(b.batches(b.test_idx)))
+    expect = {"fwd": L * (train_w + eval_w), "bwd": L * train_w,
+              "reduce": L * train_w}
+    log(f"[resume] resumed epoch launches {counts} (expected {expect}: "
+        f"{L} layers x {train_w} train windows + {eval_w} eval windows, "
+        "the val set twice: the best-val gate's seed and the epoch)")
+    if counts != expect:
+        raise AssertionError(f"resume: launches {counts}, expected {expect}")
+    return b.steps_per_epoch()
+
+
+def run_cli(args, tag, timeout=600):
+    """`python -m <args>` from the repository root as a subprocess; its
+    standard output and the tail of its standard error are logged."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    for line in proc.stderr.strip().splitlines()[-6:]:
+        log(f"[{tag}] stderr: {line}")
+    log(f"[{tag}] exit {proc.returncode} after {seconds:.1f} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag}: exit {proc.returncode}")
+    return proc
+
+
+def check_run_io(mcfg, graphs, qm9, device, card, steps_per_epoch):
+    """Phases 8c-8e: a graph cache of the training molecules; the training
+    CLI on it for 1 epoch, then with --auto-resume to 2; the evaluate CLI
+    against Predictor.from_run's MAE; from_run serving the QM9-scale
+    molecules (launches; bitwise against a Predictor on the EMA weights
+    restored by Trainer.restore; one batch against the CPU); the .pth
+    export and import (bitwise)."""
+    import numpy as np
+    import torch
+    from x2gnn_tpu_torch.data.dataset import save_graph_cache
+    from x2gnn_tpu_torch.evaluate import absolute_error
+    from x2gnn_tpu_torch.infer import Predictor, load_run_configs
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    from x2gnn_tpu_torch.utils.torch_ckpt import (
+        export_torch_state_dict, import_torch_state_dict)
+
+    with tempfile.TemporaryDirectory() as root:
+        cache = os.path.join(root, "cache.npz")
+        save_graph_cache(cache, graphs, basis="synthetic-random")
+        work = os.path.join(root, "cli")
+        train = ["x2gnn_tpu_torch.train", "--config", FLAGSHIP_ARGS,
+                 "--data-npz", cache, "--ckpt-every", "1", "--pack-mixed",
+                 "--workdir", work]
+        run_cli(train + ["--epochs", "1"], "cli train")
+        run_cli(train + ["--epochs", "2", "--auto-resume"],
+                "cli train --auto-resume")
+        records = read_records(work)
+        log(f"[cli train] metrics.jsonl: epochs "
+            f"{[r['epoch'] for r in records]}, steps "
+            f"{[r['step'] for r in records]}, val_mae "
+            f"{[r['val_mae'] for r in records]}")
+        if ([r["epoch"] for r in records] != [1, 2]
+                or records[-1]["step"] != 2 * steps_per_epoch):
+            raise AssertionError(f"cli train: records {records}")
+        best = os.path.join(work, "ckpt_best.pt")
+        proc = run_cli(["x2gnn_tpu_torch.evaluate", "--ckpt", best,
+                        "--data-npz", cache], "cli evaluate")
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+        cold = [line for line in proc.stderr.splitlines()
+                if "cold pass" in line][-1]
+        log(f"[cli evaluate] {card}: {json.dumps(result)}; {cold}")
+
+        # 8d: from_run
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = Predictor.from_run(work, device=device)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        log(f"[from_run] {card}: Predictor.from_run load {load_ms:.1f} ms")
+        full = pred.predict(graphs)
+        targets = np.array([g.y[0] for g in graphs], np.float64)
+        mae = float(np.abs(full - targets).mean())
+        rel = abs(result["mae"] - mae) / abs(mae)
+        log(f"[cli evaluate] MAE {result['mae']!r} against from_run's "
+            f"{mae!r} over {len(graphs)} molecules: relative difference "
+            f"{rel:.3e} (limit 1e-6)")
+        if result["count"] != len(graphs) or rel > 1e-6:
+            raise AssertionError("cli evaluate: MAE differs from from_run")
+        # evaluate's loop on the restored model, warm: the second of two
+        # passes in this process
+        y = targets.astype(np.float32)
+        absolute_error(pred.model, graphs, y, 32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, count = absolute_error(pred.model, graphs, y, 32)
+        seconds = time.perf_counter() - t0
+        log(f"[evaluate] {card}: evaluate's loop, warm, {count} molecules "
+            f"in {seconds:.4f} s: {count / seconds:.1f} molecules/s")
+        preds, _ = serve(pred, qm9, mcfg.conv_layers * math.ceil(
+            len(qm9) / pred.batch_size), "from_run")
+        _, run_tcfg = load_run_configs(os.path.join(work, "args.json"))
+        trainer = flagship_trainer(mcfg, run_tcfg, graphs, device,
+                                   "unused", seed=5)
+        ema = trainer.ema_parameters(trainer.restore(best))
+        direct = X2GNN(mcfg, torch.Generator().manual_seed(6), device=device)
+        with torch.no_grad():
+            for name, p in direct.named_parameters():
+                p.copy_(ema[name])
+        again = Predictor(mcfg, direct, device=device).predict(qm9)
+        same = np.array_equal(preds, again)
+        log(f"[from_run] against a Predictor on the EMA weights of "
+            f"Trainer.restore: {'bitwise equal' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError("from_run: predictions differ from the "
+                                 "restored EMA weights'")
+        cpu = Predictor.from_run(work, device="cpu").predict(qm9[:32])
+        diff = np.abs(preds[:32] - cpu)
+        log(f"[from_run] card vs CPU on 32 molecules: max_abs="
+            f"{diff.max():.3e} (|pred| max {np.abs(cpu).max():.3e})")
+        np.testing.assert_allclose(preds[:32], cpu, rtol=MODEL_RTOL,
+                                   atol=MODEL_ATOL)
+
+        # 8e: .pth round trip of the EMA weights
+        pth = os.path.join(root, "x2gnn.pth")
+        sd = export_torch_state_dict(pred.model)
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()},
+                    "epoch": 2}, pth)
+        fresh = X2GNN(mcfg, torch.Generator().manual_seed(9), device=device)
+        report = import_torch_state_dict(
+            torch.load(pth, map_location="cpu", weights_only=True)["model"],
+            fresh)
+        same = all(torch.equal(p, q) for p, q in
+                   zip(fresh.parameters(), pred.model.parameters()))
+        back = Predictor(mcfg, fresh, device=device).predict(qm9)
+        log(f"[pth] {len(sd)} tensors exported and imported: report "
+            f"{json.dumps(report)}, parameters "
+            f"{'bitwise equal' if same else 'DIFFER'}, predictions "
+            f"{'bitwise equal' if np.array_equal(back, preds) else 'DIFFER'}")
+        if any(report.values()) or not same or not np.array_equal(back,
+                                                                 preds):
+            raise AssertionError("pth: the round trip changed the model")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -768,6 +1168,7 @@ def main() -> int:
     from x2gnn_tpu_torch.profile_training import flagship_training_configs
 
     # ---- 1. card ----
+    t_start = time.perf_counter()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
@@ -778,6 +1179,7 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
 
     # ---- 2. build ----
+    log(f"[phase 2] starts at {time.perf_counter() - t_start:.1f} s")
     t0 = time.perf_counter()
     for name, built in _build.build_all().items():
         log(f"[build] {name}: {built.seconds:.2f} s nvcc -> {built.path}")
@@ -792,6 +1194,7 @@ def main() -> int:
     aid = synthetic_dataset(16, mean_atoms=64, seed=3)
 
     # ---- 3. kernels against their plain versions ----
+    log(f"[phase 3] starts at {time.perf_counter() - t_start:.1f} s")
     serving_args = kernel_inputs(qm9, 32, cfg, device, seed=1)
     aid_args = kernel_inputs(aid, 4, cfg, device, seed=2)
     if tuple(serving_args[0].shape[:2]) != (1024, 24):
@@ -806,6 +1209,7 @@ def main() -> int:
                                      fwd_timed=True)
 
     # ---- 4. serving ----
+    log(f"[phase 4] starts at {time.perf_counter() - t_start:.1f} s")
     model = X2GNN(cfg, torch.Generator().manual_seed(0), device=device)
     pred = Predictor(cfg, model, batch_size=32, device=device)
     n_batches = math.ceil(len(qm9) / 32)
@@ -826,6 +1230,7 @@ def main() -> int:
                                atol=MODEL_ATOL)
 
     # ---- 5. serving times ----
+    log(f"[phase 5] starts at {time.perf_counter() - t_start:.1f} s")
     iters = 5
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -845,6 +1250,7 @@ def main() -> int:
         f"{dt_host * 1e3:.2f} ms per {len(qm9)} molecules")
 
     # ---- 6. training ----
+    log(f"[phase 6] starts at {time.perf_counter() - t_start:.1f} s")
     mcfg, tcfg = flagship_training_configs()
     tcfg = dataclasses.replace(tcfg, max_epoch=2)
     log("[train] flagship recipe from runs/flagship_r5_regression/args.json"
@@ -933,6 +1339,7 @@ def main() -> int:
                          cfg_c, timed=False)
 
     # ---- 7. training times ----
+    log(f"[phase 7] starts at {time.perf_counter() - t_start:.1f} s")
     # the packed step with its tiers and as one window per conv (the same
     # sorted batches, split and tiers removed); the fixed-budget step with
     # its tiers and on the one-window path's batches; each on one model and
@@ -974,6 +1381,14 @@ def main() -> int:
         f"{packed_one_bwd['ms_with_reduce']:.4f}); AID tier {aid_tier}: "
         f"forward {records['fwd_aid_tier']['ms']:.4f} ms, backward "
         f"{records['bwd_aid_tier']['ms']:.4f} ms (device time back to back)")
+
+    # ---- 8. determinism, resume, caches, the CLIs, from_run, .pth ----
+    log(f"[phase 8] starts at {time.perf_counter() - t_start:.1f} s")
+    check_step_determinism(mcfg, tcfg, train_graphs, qm9, device, card)
+    spe = check_resume(mcfg, tcfg, train_graphs, device, card,
+                       packed_records)
+    check_run_io(mcfg, train_graphs, qm9, device, card, spe)
+    log(f"[phase 8] done at {time.perf_counter() - t_start:.1f} s")
 
     fwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_fwd.cu"
     bwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_bwd.cu"

@@ -37,7 +37,9 @@ def test_port_imports_no_jax_nor_the_jax_package():
     for module in ("train/trainer.py", "train/optim.py", "train/ema.py",
                    "train/loss.py", "train/checkpoint.py",
                    "train/__main__.py", "data/molecule.py",
-                   "profile_training.py"):
+                   "profile_training.py", "data/dataset.py",
+                   "data/featurize.py", "evaluate.py", "infer.py",
+                   "utils/determinism.py", "utils/torch_ckpt.py"):
         assert f"x2gnn_tpu_torch/{module}" in scanned, module
     bad = [(str(p.relative_to(REPO)), name) for p in files
            for name in _imports(p)
@@ -77,3 +79,37 @@ def test_training_entry_points_default_to_the_card():
         Trainer(model, cfg, TrainConfig(), graphs, np.zeros(4, np.float32))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--synthetic", "4"])
+
+
+def test_run_io_entry_points_default_to_the_card(tmp_path):
+    """Predictor.from_run / from_checkpoint, the evaluate CLI and the
+    .pth import CLI want the card unless told device='cpu'."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from x2gnn_tpu_torch.config import ModelConfig, TrainConfig, dump_configs
+    from x2gnn_tpu_torch.evaluate import main as evaluate_main
+    from x2gnn_tpu_torch.infer import Predictor
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    from x2gnn_tpu_torch.train.checkpoint import save_checkpoint
+    from x2gnn_tpu_torch.train.ema import ema_init
+    from x2gnn_tpu_torch.train.optim import Optimizer
+    from x2gnn_tpu_torch.train.trainer import TrainState
+    from x2gnn_tpu_torch.utils.torch_ckpt import main as import_main
+    cfg = ModelConfig(conv_layers=1, in_channels=32, embedding_size=32,
+                      heads=4, edge_feat_dim=8, attention_layout="blocked")
+    params = list(X2GNN(cfg, device="cpu").parameters())
+    zero = torch.zeros((), dtype=torch.int32)
+    save_checkpoint(str(tmp_path / "ckpt_best.pt"), TrainState(
+        params, Optimizer(TrainConfig()).init(params), ema_init(params),
+        zero, zero))
+    dump_configs(cfg, TrainConfig(), str(tmp_path / "args.json"))
+    ckpt = str(tmp_path / "ckpt_best.pt")
+    for call in (lambda: Predictor.from_run(str(tmp_path)),
+                 lambda: Predictor.from_checkpoint(ckpt),
+                 lambda: evaluate_main(["--ckpt", ckpt, "--synthetic", "2"]),
+                 lambda: import_main(["--pth", ckpt, "--out",
+                                      str(tmp_path / "out")])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert Predictor.from_run(str(tmp_path), device="cpu").device.type == \
+        "cpu"

@@ -16,10 +16,11 @@ from x2gnn_tpu.infer import load_run_configs as jload_run_configs
 from x2gnn_tpu.infer import quantize_budgets as jquantize
 from x2gnn_tpu.models import X2GNN as JaxX2GNN
 from x2gnn_tpu.utils.parity import export_params_flat
-from x2gnn_tpu_torch.config import ModelConfig, load_run_configs
+from x2gnn_tpu_torch.config import ModelConfig
 from x2gnn_tpu_torch.data.batching import pad_budget_for, pad_graphs
 from x2gnn_tpu_torch.data.synthetic import synthetic_dataset
-from x2gnn_tpu_torch.infer import Predictor, quantize_budgets
+from x2gnn_tpu_torch.infer import (
+    Predictor, load_run_configs, quantize_budgets)
 from x2gnn_tpu_torch.models.x2gnn import X2GNN
 from x2gnn_tpu_torch.weights import load_flax_params
 
@@ -27,6 +28,19 @@ from x2gnn_tpu_torch.weights import load_flax_params
 SMALL = dict(conv_layers=2, in_channels=32, embedding_size=32, heads=4,
              sbf_dim=7, rbf_dim=6, edge_feat_dim=8,
              attention_layout="blocked")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port's small CPU tests, restored after
+    the module: the suite's workers share the machine's cores, and
+    torch's default of one thread per core in every worker oversubscribes
+    them (the port's training tests ran several times slower so). Other
+    port test modules import it to share it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _graphs(n, seed):
@@ -107,7 +121,7 @@ def test_load_flax_params_fills_every_parameter(problem):
 
 
 def test_load_run_configs_reads_the_flagship_args():
-    cfg = load_run_configs("runs/flagship_r5_regression/args.json")
+    cfg, _ = load_run_configs("runs/flagship_r5_regression/args.json")
     assert cfg == ModelConfig(attention_layout="blocked")
     assert (cfg.conv_layers, cfg.in_channels, cfg.heads, cfg.head_dim,
             cfg.sbf_dim, cfg.rbf_dim, cfg.edge_feat_dim) == (
@@ -121,7 +135,7 @@ def test_load_run_configs_reads_a_reference_config_json(tmp_path):
     path = tmp_path / "config.json"
     path.write_text(json.dumps(raw))
     ref, _ = jload_run_configs(str(path))
-    got = load_run_configs(str(path))
+    got, _ = load_run_configs(str(path))
     for f in dataclasses.fields(got):
         assert getattr(got, f.name) == getattr(ref, f.name), f.name
 

@@ -12,7 +12,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from test_torch_port_model import SMALL, _graphs
+from test_torch_port_model import (  # noqa: F401 (autouse fixture)
+    SMALL, _graphs, one_torch_thread)
 from x2gnn_tpu.config import ModelConfig as JaxModelConfig
 from x2gnn_tpu.config import TrainConfig as JaxTrainConfig
 from x2gnn_tpu.data import batching as jbatching

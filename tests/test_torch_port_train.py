@@ -13,7 +13,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from test_torch_port_model import SMALL, _graphs
+from test_torch_port_model import (  # noqa: F401 (autouse fixture)
+    SMALL, _graphs, one_torch_thread)
 from x2gnn_tpu.config import ModelConfig as JaxModelConfig
 from x2gnn_tpu.config import TrainConfig as JaxTrainConfig
 from x2gnn_tpu.data import batching as jbatching
@@ -422,12 +423,38 @@ def test_cli_trains_on_the_cpu(tmp_path):
         assert (workdir / name).exists(), name
 
 
-@pytest.mark.parametrize("flag", ["--data-parallel", "--resume=x",
-                                  "--data=x"])
+@pytest.mark.parametrize("flag", ["--data-parallel", "--data=x"])
 def test_cli_refuses_unported_flags(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    item = {"--data-parallel": "A10", "--data=x": "A11"}[flag]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli_main(["--device", "cpu", "--synthetic", "4", flag,
                   "--workdir", str(tmp_path)])
+
+
+def test_cli_resumes_from_a_checkpoint(tmp_path):
+    """--resume trains the epochs left of --epochs from the checkpoint's
+    step and numbers them on; a graph cache (--data-npz, --limit) feeds
+    the run and its basis tag goes to provenance.json."""
+    from x2gnn_tpu_torch.data.dataset import save_graph_cache
+    from x2gnn_tpu_torch.data.synthetic import synthetic_dataset
+    cache = str(tmp_path / "cache.npz")
+    save_graph_cache(cache, synthetic_dataset(30, mean_atoms=7,
+                                              edge_feat_dim=8), basis="x2sv")
+    workdir = tmp_path / "run"
+    common = ["--device", "cpu", "--data-npz", cache, "--limit", "24",
+              "--config", _small_config(tmp_path, ckpt_every=1),
+              "--workdir", str(workdir)]
+    assert cli_main(common + ["--epochs", "1"]) == 0
+    ckpt = str(tmp_path / "epoch1.pt")
+    (workdir / "ckpt_last.pt").rename(ckpt)
+    assert cli_main(common + ["--epochs", "3", "--resume", ckpt]) == 0
+    records = [json.loads(line) for line in
+               (workdir / "metrics.jsonl").read_text().splitlines()]
+    assert [r["epoch"] for r in records] == [1, 2, 3]
+    assert [r["step"] for r in records] == [records[0]["step"] * k
+                                            for k in (1, 2, 3)]
+    assert json.loads((workdir / "provenance.json").read_text()) == {
+        "basis": "x2sv"}
 
 
 @pytest.mark.parametrize("change", [

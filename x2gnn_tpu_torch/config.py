@@ -138,9 +138,3 @@ def dump_configs(model: ModelConfig, train: TrainConfig, path: str) -> None:
     with open(path, "w") as f:
         json.dump(payload, f, indent=1)
 
-
-def load_run_configs(path: str) -> ModelConfig:
-    """ModelConfig of a run: the {model: ..., train: ...} json archived by
-    the reference's train.py, or the reference's flat config.json
-    (x2gnn_tpu/infer.py:52-60). Unknown keys of a flat file are ignored."""
-    return load_configs(path)[0]

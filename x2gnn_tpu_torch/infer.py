@@ -3,18 +3,30 @@
 
 Molecules are padded to a small geometric grid of static budgets
 (`quantize_budgets`), run through X2GNN batch by batch on the model's
-device, and returned de-standardized in input order. Restoring a trained
-run from a checkpoint comes with a later slice.
+device, and returned de-standardized in input order. A trained run is
+restored from its workdir (`Predictor.from_run`: ckpt_best.pt or
+ckpt_last.pt, args.json and standardization.json) or from one checkpoint
+(`from_checkpoint`), on the EMA weights by default:
+
+    pred = Predictor.from_run("runs/u0")         # on the card
+    energies = pred.predict(graphs)              # featurized MolGraphs
+
+Featurizing xyz files or Molecule objects (`predict_xyz`,
+`predict_molecules`) is not ported yet (ROADMAP A11), and with it the
+check of new molecules' basis against the run's provenance.json.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from x2gnn_tpu_torch.config import ModelConfig
+from x2gnn_tpu_torch.config import load_configs as load_run_configs
 from x2gnn_tpu_torch.data.batching import (
     Budgets, batch_iterator, pad_budget_for)
 from x2gnn_tpu_torch.data.graphs import MolGraph
@@ -47,6 +59,54 @@ class Predictor:
         self.stats = stats              # {"mu": ..., "sigma": ...} or None
         self.batch_size = batch_size
 
+    @classmethod
+    def from_checkpoint(cls, ckpt_path: str,
+                        model_cfg: Optional[ModelConfig] = None,
+                        use_ema: bool = True, device="cuda",
+                        **kw) -> "Predictor":
+        """A Predictor on the EMA (or, use_ema=False, the live) weights of
+        the checkpoint `ckpt_path`; `model_cfg` defaults to the args.json
+        beside it. A flat EMA (fused_update runs) is cut back into the
+        parameters (x2gnn_tpu/infer.py:157-177)."""
+        from x2gnn_tpu_torch.models.x2gnn import X2GNN
+        from x2gnn_tpu_torch.train.checkpoint import restore_checkpoint
+        from x2gnn_tpu_torch.weights import load_parameter_list
+
+        device = resolve_device(device)
+        if model_cfg is None:
+            model_cfg, _ = load_run_configs(os.path.join(
+                os.path.dirname(os.path.abspath(ckpt_path)), "args.json"))
+        raw = restore_checkpoint(ckpt_path)
+        model = X2GNN(model_cfg, torch.Generator().manual_seed(0),
+                      device=device)
+        load_parameter_list(model, raw["ema"]["params"] if use_ema
+                            else raw["params"])
+        return cls(model_cfg, model, device=device, **kw)
+
+    @classmethod
+    def from_run(cls, workdir: str, use_ema: bool = True,
+                 **kw) -> "Predictor":
+        """Restore a training workdir: args.json, standardization.json
+        (if any), and ckpt_best.pt, else
+        ckpt_last.pt (ckpt_best exists only from ckpt_after_epoch on)
+        (x2gnn_tpu/infer.py:179-206)."""
+        mcfg, _ = load_run_configs(os.path.join(workdir, "args.json"))
+        stats = None
+        stats_path = os.path.join(workdir, "standardization.json")
+        if os.path.exists(stats_path):
+            with open(stats_path) as f:
+                stats = json.load(f)
+        ckpt = os.path.join(workdir, "ckpt_best.pt")
+        if not os.path.isfile(ckpt):
+            ckpt = os.path.join(workdir, "ckpt_last.pt")
+            if not os.path.isfile(ckpt):
+                raise FileNotFoundError(
+                    f"no checkpoint in {workdir}: neither ckpt_best.pt "
+                    "(written from ckpt_after_epoch on, when val improves) "
+                    "nor ckpt_last.pt (TrainConfig.ckpt_every) exists")
+        return cls.from_checkpoint(ckpt, model_cfg=mcfg, use_ema=use_ema,
+                                   stats=stats, **kw)
+
     def predict(self, graphs: Sequence[MolGraph],
                 batch_size: Optional[int] = None) -> np.ndarray:
         """Per-molecule predictions (physical units), in input order."""
@@ -61,3 +121,16 @@ class Predictor:
         if self.stats is not None:
             pred = pred * self.stats["sigma"] + self.stats["mu"]
         return pred
+
+    def predict_xyz(self, *args, **kwargs) -> np.ndarray:
+        """Featurize an xyz file and predict: not ported yet."""
+        raise NotImplementedError(
+            "predict_xyz featurizes molecules, which is not ported yet "
+            "(ROADMAP A11); featurize elsewhere and call predict(graphs)")
+
+    def predict_molecules(self, *args, **kwargs) -> np.ndarray:
+        """Featurize Molecule objects and predict: not ported yet."""
+        raise NotImplementedError(
+            "predict_molecules featurizes molecules, which is not ported "
+            "yet (ROADMAP A11); featurize elsewhere and call "
+            "predict(graphs)")

@@ -46,11 +46,10 @@ def main() -> None:
     print_device_profile(prof, wall_us, args.top)
 
 
-def print_device_profile(prof, wall_us: float, top: int) -> None:
-    """Print device busy time, idle share 1 - busy/wall and the device
-    time per kernel name, largest first, of a finished torch.profiler
-    run over `wall_us` microseconds; raise if it recorded no device time."""
-    import torch
+def device_rows(prof):
+    """(device us, count, name) of each kernel or copy of a finished
+    torch.profiler run, largest first; raises if it recorded no device
+    time."""
     from torch.autograd import DeviceType
 
     # device-side events only (kernels, copies): a CPU op's own device
@@ -59,9 +58,19 @@ def print_device_profile(prof, wall_us: float, top: int) -> None:
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), reverse=True)
-    busy_us = sum(r[0] for r in rows)
-    if busy_us <= 0:
+    if not rows:
         raise RuntimeError("the profiler recorded no device time")
+    return rows
+
+
+def print_device_profile(prof, wall_us: float, top: int) -> None:
+    """Print device busy time, idle share 1 - busy/wall and the device
+    time per kernel name, largest first, of a finished torch.profiler
+    run over `wall_us` microseconds; raise if it recorded no device time."""
+    import torch
+
+    rows = device_rows(prof)
+    busy_us = sum(r[0] for r in rows)
     print(f"{torch.cuda.get_device_name(0)}: wall {wall_us / 1e3:.3f} ms, "
           f"device busy {busy_us / 1e3:.3f} ms, idle share "
           f"{1 - busy_us / wall_us:.3f}")

@@ -3,18 +3,33 @@ train.py (:168-358):
 
     python -m x2gnn_tpu_torch.train --synthetic 512 --epochs 20 \\
         --workdir runs/smoke                     # on the card
-    python -m x2gnn_tpu_torch.train --synthetic 512 --epochs 20 \\
-        --pack-mixed --fused-update --scheduler plateau \\
-        --workdir runs/packed        # the flagship recipe's batching
+    python -m x2gnn_tpu_torch.train --data-npz cache.npz \\
+        --config runs/flagship_r5_regression/args.json --pack-mixed \\
+        --workdir runs/packed      # a graph cache, the flagship recipe
+    python -m x2gnn_tpu_torch.train ... --auto-resume   # after a crash
     python -m x2gnn_tpu_torch.train --device cpu --synthetic 24 \\
         --epochs 2 --batch-size 8 --workdir /tmp/run   # on the CPU
 
+Data: --synthetic N molecules, made with the model's edge feature width
+and cutoff, or --data-npz, a graph cache (`data/dataset.py::
+save_graph_cache`) whose first --limit molecules are used, with targets
+from `prepare_targets`. Featurizing xyz files (--data) is not ported yet
+(ROADMAP A11).
+
 The model is `ModelConfig` (or the `model` block of --config) in the
-blocked layout, with random weights from seed 0. Synthetic molecules are
-made with the model's edge feature width and cutoff. Writes
-provenance.json, atomref.json (--atomref-fit), standardization.json
-(--standardize), and through Trainer.fit args.json, metrics.jsonl,
-train.log and the checkpoints. Prints the summary as one JSON line.
+blocked layout, with random weights from seed 0. --resume CKPT continues
+from a checkpoint; --auto-resume from the newest `ckpt_*.pt` of the
+workdir if there is one. A resumed run trains the epochs left,
+max_epoch - step // steps_per_epoch, and numbers them on from there.
+Other flags: --target, --epochs, --batch-size, --max-lr, --scheduler,
+--warmup-steps, --ema-decay, --patience, --fused-update, --atomref-fit,
+--standardize, --ckpt-every, --ckpt-after-epoch, --bucket-shapes,
+--pack-budget, --pack-mixed, --device.
+
+Writes provenance.json (the data's basis tag), atomref.json
+(--atomref-fit), standardization.json (--standardize), and through
+Trainer.fit args.json, metrics.jsonl, train.log and the checkpoints.
+Prints the summary as one JSON line.
 """
 
 from __future__ import annotations
@@ -29,9 +44,7 @@ import sys
 _UNPORTED = {
     "data_parallel": ("--data-parallel", "A10"),
     "edge_partition": ("--edge-partition", "A10"),
-    "resume": ("--resume", "A7"),
-    "data": ("--data", "A7"),
-    "data_npz": ("--data-npz", "A7"),
+    "data": ("--data", "A11"),
 }
 
 
@@ -41,6 +54,10 @@ def parse_args(argv=None):
                    help="a run's args.json or a reference config.json")
     p.add_argument("--synthetic", type=int, default=0,
                    help="train on N synthetic molecules")
+    p.add_argument("--data-npz", default=None,
+                   help="a graph cache (save_graph_cache npz)")
+    p.add_argument("--limit", type=int, default=None,
+                   help="use only the first N molecules of the cache")
     p.add_argument("--target", type=int, default=None,
                    help="QM9 property index (overrides config)")
     p.add_argument("--workdir", default="./runs/run0")
@@ -60,6 +77,11 @@ def parse_args(argv=None):
     p.add_argument("--standardize", action="store_true",
                    help="z-score targets; the MAE is reported in physical "
                         "units")
+    p.add_argument("--resume", default=None,
+                   help="checkpoint (.pt) to resume from")
+    p.add_argument("--auto-resume", action="store_true",
+                   help="resume from the workdir's newest ckpt_*.pt if "
+                        "there is one")
     p.add_argument("--ckpt-every", type=int, default=None)
     p.add_argument("--ckpt-after-epoch", type=int, default=None)
     p.add_argument("--device", default="cuda",
@@ -76,9 +98,7 @@ def parse_args(argv=None):
                         "shape, every batch spans the size distribution")
     p.add_argument("--data-parallel", action="store_true")
     p.add_argument("--edge-partition", default=None)
-    p.add_argument("--resume", default=None)
     p.add_argument("--data", default=None)
-    p.add_argument("--data-npz", default=None)
     return p.parse_args(argv)
 
 
@@ -88,9 +108,8 @@ def main(argv=None) -> int:
         if getattr(args, field):
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP {item})")
-    if not args.synthetic:
-        print("need --synthetic N (real datasets are not ported yet)",
-              file=sys.stderr)
+    if not (args.synthetic or args.data_npz):
+        print("need --synthetic N or --data-npz CACHE", file=sys.stderr)
         return 2
 
     import numpy as np
@@ -98,10 +117,11 @@ def main(argv=None) -> int:
 
     from x2gnn_tpu_torch.config import ModelConfig, TrainConfig, load_configs
     from x2gnn_tpu_torch.data.molecule import (
-        EXTENSIVE_TARGETS, fit_linear_atomref)
+        EXTENSIVE_TARGETS, fit_linear_atomref, report_calibration)
     from x2gnn_tpu_torch.data.synthetic import synthetic_dataset
     from x2gnn_tpu_torch.device import resolve_device
     from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    from x2gnn_tpu_torch.train.checkpoint import latest_checkpoint
     from x2gnn_tpu_torch.train.trainer import (
         Trainer, make_split, resolve_division)
 
@@ -129,13 +149,28 @@ def main(argv=None) -> int:
     mcfg = dataclasses.replace(mcfg, readout=readout,
                                attention_layout="blocked")
 
-    graphs = synthetic_dataset(args.synthetic, cutoff=mcfg.cutoff,
-                               edge_feat_dim=mcfg.edge_feat_dim)
-    targets = np.array([g.y[0] for g in graphs], dtype=np.float32)
-    std = 1.0
+    if args.synthetic:
+        graphs = synthetic_dataset(args.synthetic, cutoff=mcfg.cutoff,
+                                   edge_feat_dim=mcfg.edge_feat_dim)
+        targets = np.array([g.y[0] for g in graphs], dtype=np.float32)
+        std = 1.0
+        data_basis = "synthetic-random"
+    else:
+        from x2gnn_tpu_torch.data.dataset import (
+            load_graph_cache, prepare_targets, read_cache_basis)
+        graphs = load_graph_cache(args.data_npz)
+        if args.limit:
+            graphs = graphs[:args.limit]
+        targets = prepare_targets(graphs, tcfg.target)
+        # the eV -> kcal/mol calibration applies to 12-property QM9 labels
+        multi = graphs[0].y.shape[0] == 12
+        std = report_calibration(tcfg.target) if multi else 1.0
+        data_basis = read_cache_basis(args.data_npz)
+    # the data's featurization basis beside the checkpoints: evaluation
+    # refuses data of another basis
     os.makedirs(args.workdir, exist_ok=True)
     with open(os.path.join(args.workdir, "provenance.json"), "w") as f:
-        json.dump({"basis": "synthetic-random"}, f)
+        json.dump({"basis": data_basis}, f)
 
     if args.atomref_fit:
         # the split the Trainer will build: the fit sees train molecules
@@ -162,7 +197,20 @@ def main(argv=None) -> int:
     model = X2GNN(mcfg, torch.Generator().manual_seed(0), device=device)
     trainer = Trainer(model, mcfg, tcfg, graphs, targets,
                       workdir=args.workdir, std=std, device=device)
-    _, summary = trainer.fit(epochs=tcfg.max_epoch)
+    state = None
+    resume_from = args.resume
+    if resume_from is None and args.auto_resume:
+        # the newest whole TrainState: ckpt_last, or a later ckpt_best
+        resume_from = latest_checkpoint(args.workdir)
+    epochs = tcfg.max_epoch
+    if resume_from:
+        state = trainer.restore(resume_from)
+        done = int(state.step) // trainer.steps_per_epoch()
+        epochs = max(tcfg.max_epoch - done, 0)
+        print(f"resumed from {resume_from} at step {int(state.step)} "
+              f"(~epoch {done}); {epochs} epochs remaining",
+              file=sys.stderr)
+    _, summary = trainer.fit(epochs=epochs, state=state)
     print(json.dumps(summary))
     return 0
 

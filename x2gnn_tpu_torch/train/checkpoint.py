@@ -4,8 +4,10 @@ x2gnn_tpu/train/checkpoint.py, which writes orbax trees).
 A checkpoint is one file holding the parameters, the Adam state (count,
 moments, plateau scale), the EMA, the step and `bad_steps`, all as CPU
 tensors. It is written to a temporary file and renamed, so a crash never
-leaves a torn checkpoint. Resuming a run from it, and reading or writing
-the JAX package's checkpoints, come with a later slice.
+leaves a torn checkpoint. `Trainer.restore` resumes a run from one,
+copying its parameters into the model's live tensors. The port reads
+no orbax directory: the reference X2-GNN's `.pth` files go through
+`utils/torch_ckpt.py`.
 """
 
 from __future__ import annotations
@@ -42,10 +44,21 @@ def save_checkpoint(path: str, state) -> None:
     os.replace(tmp, path)
 
 
+def _check_like(what, saved, ref):
+    if len(saved) != len(ref) or any(
+            tuple(s.shape) != tuple(r.shape) for s, r in zip(saved, ref)):
+        raise ValueError(
+            f"checkpoint {what} ({len(saved)} tensors) do not match the "
+            f"template's ({len(ref)} tensors): a flat (fused_update) "
+            "against a per-parameter state, or another model")
+
+
 def restore_checkpoint(path: str, template=None):
     """The checkpoint at `path`: a dict of CPU tensors, or, given a
-    TrainState `template` of the same structure, a TrainState on the
-    template's devices (its parameters are not touched)."""
+    TrainState `template` of the same structure, a TrainState of new
+    tensors on the template's devices (the template's parameters are not
+    touched: `Trainer.use_state` copies them into the model). Raises
+    ValueError if the structure differs from the template's."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
     if template is None:
         return raw
@@ -54,7 +67,15 @@ def restore_checkpoint(path: str, template=None):
         return [s.to(r.device) for s, r in zip(saved, ref)]
 
     opt, t_opt = raw["opt_state"], template.opt_state
+    for what, saved, ref in (("parameters", raw["params"], template.params),
+                             ("Adam moments", opt["mu"], t_opt.mu),
+                             ("EMA", raw["ema"]["params"],
+                              template.ema.params)):
+        _check_like(what, saved, ref)
     scale = opt["plateau_scale"]
+    if (scale is None) != (t_opt.plateau_scale is None):
+        raise ValueError("checkpoint and template disagree on the plateau "
+                         "scheduler's scale")
     return template._replace(
         params=like(raw["params"], template.params),
         opt_state=t_opt._replace(
@@ -70,9 +91,23 @@ def restore_checkpoint(path: str, template=None):
 
 
 def latest_checkpoint(workdir: str) -> Optional[str]:
-    """The newest `ckpt_*.pt` file under workdir (by mtime), or None."""
+    """The newest `ckpt_*.pt` file under workdir, or None. Every
+    checkpoint the Trainer writes (ckpt_last, ckpt_best) is a whole
+    TrainState, so recency alone decides: preferring ckpt_last could roll
+    back past a ckpt_best saved later. A numeric step suffix
+    (`ckpt_<step>.pt`) breaks mtime ties (x2gnn_tpu/train/checkpoint.py:
+    37-57)."""
     if not os.path.isdir(workdir):
         return None
-    cands = [os.path.join(workdir, f) for f in os.listdir(workdir)
-             if f.startswith("ckpt_") and f.endswith(".pt")]
-    return max(cands, key=os.path.getmtime) if cands else None
+    cands = [f for f in os.listdir(workdir)
+             if f.startswith("ckpt_") and f.endswith(".pt")
+             and os.path.isfile(os.path.join(workdir, f))]
+    if not cands:
+        return None
+
+    def key(f):
+        tail = f[:-len(".pt")].split("_")[-1]
+        return (os.path.getmtime(os.path.join(workdir, f)),
+                int(tail) if tail.isdigit() else -1)
+
+    return os.path.join(workdir, max(cands, key=key))

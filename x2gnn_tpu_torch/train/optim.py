@@ -53,16 +53,17 @@ class PlateauController:
     mode='min', factor=reduce_factor, patience, min_lr=max_lr*decay_rate;
     threshold 1e-4 relative, cooldown 0), stepped once per epoch on the
     validation MAE; the scale goes into the optimizer state
-    (`set_plateau_scale`)."""
+    (`set_plateau_scale`). A resumed run starts at `scale`, the restored
+    optimizer's (`get_plateau_scale`)."""
 
     threshold = 1e-4
 
     def __init__(self, factor: float = 0.7, patience: int = 3,
-                 min_scale: float = 0.01):
+                 min_scale: float = 0.01, scale: float = 1.0):
         self.factor = factor
         self.patience = patience
         self.min_scale = min_scale
-        self.scale = 1.0
+        self.scale = scale
         self.best = float("inf")
         self.bad_epochs = 0
 
@@ -89,6 +90,15 @@ class AdamState(NamedTuple):
 def set_plateau_scale(state: AdamState, scale: float) -> AdamState:
     return state._replace(plateau_scale=torch.full_like(
         state.plateau_scale, scale))
+
+
+def get_plateau_scale(state: AdamState) -> float:
+    """The plateau LR scale of the optimizer state (1.0 if it has none),
+    which a resumed run's PlateauController starts from
+    (x2gnn_tpu/train/optim.py:95)."""
+    if state.plateau_scale is None:
+        return 1.0
+    return float(state.plateau_scale)
 
 
 class Optimizer:

@@ -18,7 +18,10 @@ Each step runs the model forward, autograd's backward (the attention's
 through the CUDA backward kernel), then clip, Adam and the EMA, with the
 non-finite skip decided on the device. The parameters are updated in
 place; with `fused_update` they are views into one flat vector, which the
-optimizer and the EMA update as a whole.
+optimizer and the EMA update as a whole. A state handed in from outside
+(`restore`, `fit(state=)`) is first copied into those live tensors
+(`use_state`). A resumed run counts epochs globally from its restored
+step (trainer.py:571-609).
 """
 
 from __future__ import annotations
@@ -36,12 +39,14 @@ from x2gnn_tpu_torch.data.batching import (
     Budgets, GraphBatch, batch_iterator, mixed_packed_plan, pad_budget_for,
     pad_graphs, size_bucketed_plan)
 from x2gnn_tpu_torch.device import resolve_device
-from x2gnn_tpu_torch.train.checkpoint import save_checkpoint
+from x2gnn_tpu_torch.train.checkpoint import (
+    restore_checkpoint, save_checkpoint)
 from x2gnn_tpu_torch.train.ema import EmaState, ema_init, unflatten
 from x2gnn_tpu_torch.train.loss import masked_mae, smooth_l1_loss
 from x2gnn_tpu_torch.train.optim import (
     AdamState, Optimizer, PlateauController, apply_update_skip_nonfinite,
-    set_plateau_scale)
+    get_plateau_scale, set_plateau_scale)
+from x2gnn_tpu_torch.weights import parameter_list
 
 
 class TrainState(NamedTuple):
@@ -184,6 +189,51 @@ class Trainer:
                           ema_init(params, flat=self._flat is not None),
                           zero, zero.clone())
 
+    def use_state(self, state: TrainState) -> TrainState:
+        """`state` on the model's live parameters: each of its parameter
+        tensors that is not the live one is copied into it. `train_step`
+        differentiates the model's parameters and updates state.params in
+        place, so a state must hold them."""
+        live = [self._flat] if self._flat is not None else self._leaves
+        if len(state.params) != len(live):
+            raise ValueError(f"state has {len(state.params)} parameter "
+                             f"tensors, the trainer {len(live)}")
+        with torch.no_grad():
+            for p, v in zip(live, state.params):
+                if p is not v:
+                    p.copy_(v)
+        return state._replace(params=live)
+
+    def _own_layout(self, tensors) -> List[torch.Tensor]:
+        """Saved parameter-shaped tensors (one flat vector, or one per
+        parameter) in this trainer's layout, on its device."""
+        per = parameter_list(self.model, [t.to(self.device)
+                                          for t in tensors])
+        if self._flat is not None:
+            return [torch.cat([t.reshape(-1) for t in per])]
+        return [t.clone() for t in per]
+
+    def restore(self, path: str) -> TrainState:
+        """The TrainState of the checkpoint `path`, its parameters copied
+        into the model. A checkpoint of the other parameter layout (a
+        per-parameter EMA under `fused_update`'s flat one, or the reverse)
+        is adapted: parameters and EMA are converted, the Adam moments and
+        count start again at zero, as the reference does
+        (trainer.py:712-750)."""
+        template = self.init_state()
+        try:
+            return self.use_state(restore_checkpoint(path, template))
+        except ValueError:
+            raw = restore_checkpoint(path)
+        params = self._own_layout(raw["params"])
+        state = self.use_state(template._replace(params=params))
+        ema = EmaState(self._own_layout(raw["ema"]["params"]),
+                       raw["ema"]["count"].to(self.device))
+        return state._replace(
+            opt_state=self.optimizer.init(state.params), ema=ema,
+            step=raw["step"].to(self.device),
+            bad_steps=raw["bad_steps"].to(self.device))
+
     @property
     def packed(self) -> bool:
         """Whether batches come from a packing or bucketing plan."""
@@ -278,11 +328,19 @@ class Trainer:
         total = float(errs.astype(np.float64).sum())
         return self.std * total / max(int(counts.sum()), 1)
 
-    def fit(self, epochs: Optional[int] = None):
-        """Train for `epochs` (default max_epoch) from `init_state()`:
-        plateau control, the best-val gate with ckpt_best.pt, ckpt_last.pt
-        every ckpt_every epochs, one metrics.jsonl record and one train.log
-        line per epoch (trainer.py:557-709). Returns (state,
+    def fit(self, epochs: Optional[int] = None,
+            state: Optional[TrainState] = None):
+        """Train for `epochs` (default max_epoch) from `state` (a resumed
+        run, e.g. `restore`) or `init_state()`: plateau control, the
+        best-val gate with ckpt_best.pt, ckpt_last.pt every ckpt_every
+        epochs, one metrics.jsonl record and one train.log line per epoch
+        (trainer.py:557-709). Epochs count globally from the state's step,
+        epoch0 = step // steps_per_epoch: the shuffle, the
+        ckpt_after_epoch gate and the records' numbering continue the
+        run. A resumed run starts the plateau controller at the restored
+        scale (its best and patience counters start again, as in the
+        reference) and the best-val gate at the restored weights' val MAE
+        or the smaller recorded ckpt_best_val.json. Returns (state,
         {"best_val_mae", "test_mae"})."""
         epochs = self.tcfg.max_epoch if epochs is None else epochs
         os.makedirs(self.workdir, exist_ok=True)
@@ -291,18 +349,33 @@ class Trainer:
         log_path = os.path.join(self.workdir, "train.log")
         jsonl_path = os.path.join(self.workdir, "metrics.jsonl")
         best_meta = os.path.join(self.workdir, "ckpt_best_val.json")
-        state = self.init_state()
+        resumed = state is not None
+        state = self.use_state(state) if resumed else self.init_state()
+        epoch0 = int(state.step) // self.steps_per_epoch()
         plateau = None
         if self.tcfg.scheduler == "plateau":
-            plateau = PlateauController(factor=self.tcfg.reduce_factor,
-                                        patience=self.tcfg.patience,
-                                        min_scale=self.tcfg.decay_rate)
+            plateau = PlateauController(
+                factor=self.tcfg.reduce_factor, patience=self.tcfg.patience,
+                min_scale=self.tcfg.decay_rate,
+                scale=(get_plateau_scale(state.opt_state) if resumed
+                       else 1.0))
         plateau_logged = plateau.scale if plateau is not None else None
 
         best_val, test_err = None, None
+        if resumed:
+            # an early, worse epoch of the resumed run must not overwrite
+            # ckpt_best: the gate starts at the better of the restored
+            # weights' val MAE and the value recorded beside ckpt_best
+            best_val = self.evaluate(state, self.val_idx)
+            try:
+                with open(best_meta) as f:
+                    best_val = min(best_val,
+                                   float(json.load(f)["best_val_mae"]))
+            except (FileNotFoundError, ValueError, KeyError):
+                pass   # absent or torn file: the evaluation stands
         for epoch in range(epochs):
             t0 = time.time()
-            state, loss = self.run_epoch(state, epoch)
+            state, loss = self.run_epoch(state, epoch0 + epoch)
             val_err = self.evaluate(state, self.val_idx)
             if plateau is not None:
                 new_scale = plateau.step(val_err)
@@ -312,7 +385,7 @@ class Trainer:
                 plateau_logged = new_scale
             if best_val is None or val_err <= best_val:
                 best_val = val_err
-                if epoch >= self.tcfg.ckpt_after_epoch:
+                if epoch0 + epoch >= self.tcfg.ckpt_after_epoch:
                     test_err = self.evaluate(state, self.test_idx)
                     save_checkpoint(
                         os.path.join(self.workdir, "ckpt_best.pt"), state)
@@ -327,7 +400,7 @@ class Trainer:
             seconds = time.time() - t0
             n_train = len(self.train_idx)
             record = {
-                "epoch": epoch + 1,
+                "epoch": epoch0 + epoch + 1,
                 "loss": float(loss),
                 "val_mae": float(val_err),
                 "best_val_mae": float(best_val),
@@ -363,7 +436,7 @@ class Trainer:
             with open(log_path, "a") as f:
                 f.write(
                     f"{time.strftime('%m_%d_%H_%M_%S')}"
-                    f"\t[epoch]:{epoch + 1:03d}"
+                    f"\t[epoch]:{epoch0 + epoch + 1:03d}"
                     f"\t[Loss]:{loss:.7f}"
                     f"\t[ValMAE]:{val_err:.7f}"
                     f"\t[TestMAE]:"

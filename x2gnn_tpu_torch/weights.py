@@ -16,11 +16,13 @@ port parameter, re-inserting `Dense_0` where the reference nests it
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from x2gnn_tpu_torch.train.ema import unflatten
 
 
 def load_flax_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> None:
@@ -49,6 +51,39 @@ def load_flax_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> None:
     missing = sorted(set(params) - filled)
     if missing:
         raise KeyError(f"port parameters left unfilled: {missing}")
+
+
+def parameter_list(model: nn.Module,
+                   tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """A checkpoint's parameter list as one tensor per parameter of
+    `model`, in `model.parameters()` order: the list itself, or views of
+    its one flat vector of them all (a `fused_update` run's state). Raises
+    on a count or shape mismatch."""
+    params = list(model.parameters())
+    if len(tensors) == 1 and len(params) > 1:
+        flat = tensors[0].reshape(-1)
+        total = sum(p.numel() for p in params)
+        if flat.numel() != total:
+            raise ValueError(f"a flat vector of {flat.numel()} values for "
+                             f"{total} parameter values")
+        tensors = unflatten(flat, params)
+    if len(tensors) != len(params):
+        raise ValueError(f"{len(tensors)} tensors for {len(params)} "
+                         "parameters")
+    for (name, p), t in zip(model.named_parameters(), tensors):
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)}, "
+                             f"model {tuple(p.shape)}")
+    return list(tensors)
+
+
+def load_parameter_list(model: nn.Module,
+                        tensors: Sequence[torch.Tensor]) -> None:
+    """Copy a checkpoint's parameter list (`parameter_list`) into
+    `model`."""
+    with torch.no_grad():
+        for p, t in zip(model.parameters(), parameter_list(model, tensors)):
+            p.copy_(t)
 
 
 def _flax_path_of(model: nn.Module, name: str) -> Tuple[str, bool]:
