@@ -81,6 +81,25 @@ Phases, each of which raises on failure (exit code != 0):
      equal to a Predictor on the EMA weights that Trainer.restore gives,
      one batch against the CPU; (e) the EMA weights exported to a
      reference-named .pth and imported into a fresh model, bitwise.
+  9. the gap recipe (runs/gap_r5_50k/args.json: the flagship's width and
+     packing, molwise_mean readout, attention dropout 0.1): (c) Trainer.fit
+     2 epochs on the same 512 molecules (cut from 200 epochs on 50k
+     molecules), the drop instances of both kernels launched conv_layers x
+     the windows of every training step and the plain forward in every
+     evaluation; the step with dropout repeated bitwise; 1 + 1 resumed
+     epochs against 2, bitwise; `python -m x2gnn_tpu_torch.train
+     --config runs/gap_r5_50k/args.json --pack-mixed` for 1 epoch as a
+     subprocess; ms per step in turns with the flagship's packed step; (b) one step on the card against the CPU under the same
+     explicit masks (phase 6c's gate); a gap step at AID scale (the drop
+     instances at its DK>40 tier); (d) the first conv with
+     return_attention_weights on the first packed batch and a loss of its
+     alpha (the drop+alpha forward and drop+galpha backward); (a) the
+     four instances (fwd drop, drop+alpha; bwd drop, drop+galpha) against
+     their plain versions under seeded masks at rates 0.1 and 0.4, with
+     phase 3's tolerances and bitwise reruns, on every tier window of the
+     first packed batch (timed in turns with the instance without mask),
+     that batch as one window, and the AID step's DK>40 tier (timed),
+     and on 128 atoms of phase 6's HC=1024 batch (8 channel groups).
 Each row of the kernels line takes its launches from a path that launches
 its shape, with the counts zeroed just before that path.
 The line before the last is a JSON object {"kernels": [...]}; the last
@@ -578,11 +597,22 @@ def launch_counts():
 
 
 def launch_shapes():
-    """{"fwd": {...}, "bwd": {...}}: launches per (N, DI, DK)."""
+    """{"fwd": {...}, "bwd": {...}}: launches per (N, DI, DK); and
+    "fwd_variants", "bwd_variants": per (variant, N, DI, DK)."""
     from x2gnn_tpu_torch.ops.blocked_attn import (
         blocked_attention, blocked_attention_bwd_partials)
     return {"fwd": dict(blocked_attention.by_shape),
-            "bwd": dict(blocked_attention_bwd_partials.by_shape)}
+            "bwd": dict(blocked_attention_bwd_partials.by_shape),
+            "fwd_variants": dict(blocked_attention.by_variant),
+            "bwd_variants": dict(blocked_attention_bwd_partials.by_variant)}
+
+
+def per_variant(counts):
+    """{variant: launches} of a by_variant count."""
+    out = {}
+    for (variant, *_), n in counts.items():
+        out[variant] = out.get(variant, 0) + n
+    return out
 
 
 def one_window_budgets(graphs, batch_size):
@@ -698,13 +728,18 @@ def train_one_step(mcfg, tcfg, graphs, device, tag, budgets=None):
     return batch, counts, shapes
 
 
-def check_step_on_card_and_cpu(mcfg, graphs, device):
+def check_step_on_card_and_cpu(mcfg, graphs, device, tag="card vs cpu",
+                               batch=None):
     """Phase 6c: the loss and the gradient of every parameter of one
-    training step on 8 molecules, on the card (CUDA kernels) and on the
-    CPU (plain versions), from the same weights. The lin_key biases shift
-    every score of a query alike, which the softmax ignores: their
+    training step on 8 molecules (or the host batch `batch`), on the card
+    (CUDA kernels) and on the CPU (plain versions), from the same weights;
+    with attention dropout (phase 9b) both under the same explicit masks,
+    one per conv drawn from a seeded numpy generator at the config's
+    rate. The lin_key biases
+    shift every score of a query alike, which the softmax ignores: their
     gradient is 0 in exact arithmetic and rounding noise on both sides,
     held below 1e-6 of the largest gradient instead."""
+    import numpy as np
     import torch
     from x2gnn_tpu_torch.data.batching import pad_budget_for, pad_graphs
     from x2gnn_tpu_torch.models.x2gnn import X2GNN
@@ -712,14 +747,25 @@ def check_step_on_card_and_cpu(mcfg, graphs, device):
 
     model = X2GNN(mcfg, torch.Generator().manual_seed(4), device=device)
     cpu_model = copy.deepcopy(model).to("cpu")
-    batch = pad_graphs(graphs, pad_budget_for(graphs, len(graphs)))
+    if batch is None:
+        batch = pad_graphs(graphs, pad_budget_for(graphs, len(graphs)))
     if len(windows_of(batch)) < 2:
-        raise AssertionError(f"card vs cpu: the batch has no degree tiers "
+        raise AssertionError(f"{tag}: the batch has no degree tiers "
                              f"({batch.tiers})")
+    masks = None
+    if mcfg.dropout > 0:
+        N, D = batch.in_edges.shape
+        keep = np.float32(1.0 - mcfg.dropout)
+        rng = np.random.default_rng(91)
+        masks = [torch.from_numpy(
+            (rng.random((N, D, D, mcfg.heads)) < keep).astype(np.float32)
+            / keep) for _ in range(mcfg.conv_layers)]
 
     def grads(m, dev):
         b = batch.to(dev)
-        loss = smooth_l1_loss(m(b), b.y, mask=b.graph_mask)
+        pred = m(b, dropout_masks=None if masks is None
+                 else [x.to(dev) for x in masks])
+        loss = smooth_l1_loss(pred, b.y, mask=b.graph_mask)
         g = torch.autograd.grad(loss, list(m.parameters()))
         return loss.item(), {n: t.detach().cpu() for (n, _), t in
                              zip(m.named_parameters(), g)}
@@ -727,12 +773,14 @@ def check_step_on_card_and_cpu(mcfg, graphs, device):
     loss, g_card = grads(model, device)
     t0 = time.perf_counter()
     cpu_loss, g_cpu = grads(cpu_model, "cpu")
-    log(f"[card vs cpu] one step on {len(graphs)} molecules, N, D = "
-        f"{tuple(batch.in_edges.shape)}, tiers {batch.tiers}: loss "
+    log(f"[{tag}] one step on {int(batch.graph_mask.sum())} molecules, "
+        f"N, D = {tuple(batch.in_edges.shape)}, tiers {batch.tiers}, readout "
+        f"{mcfg.readout}, dropout {mcfg.dropout}"
+        f"{'' if masks is None else ' (the same explicit masks)'}: loss "
         f"{loss:.7f} card, "
         f"{cpu_loss:.7f} CPU ({time.perf_counter() - t0:.1f} s on the CPU)")
     if abs(loss - cpu_loss) > 1e-5 * abs(cpu_loss):
-        raise AssertionError("card vs cpu: losses differ")
+        raise AssertionError(f"{tag}: losses differ")
     top = max(float(t.abs().max()) for t in g_cpu.values())
     worst = (0.0, "")
     for name, ref in g_cpu.items():
@@ -741,15 +789,15 @@ def check_step_on_card_and_cpu(mcfg, graphs, device):
         if name.endswith("lin_key.bias"):
             if max(float(got.abs().max()), float(ref.abs().max())) \
                     >= 1e-6 * top:
-                raise AssertionError(f"card vs cpu: {name} not ~0")
+                raise AssertionError(f"{tag}: {name} not ~0")
             continue
         limit = GRAD_ATOL * float(ref.abs().max()) + GRAD_RTOL * ref.abs()
         if (err > limit).any() or not torch.isfinite(got).all():
-            raise AssertionError(f"card vs cpu: gradient of {name} differs"
+            raise AssertionError(f"{tag}: gradient of {name} differs"
                                  f" (max abs {float(err.max()):.3e})")
         rel = float(err.max()) / max(float(ref.abs().max()), 1e-30)
         worst = max(worst, (rel, name))
-    log(f"[card vs cpu] {len(g_cpu)} gradients agree within {GRAD_RTOL} "
+    log(f"[{tag}] {len(g_cpu)} gradients agree within {GRAD_RTOL} "
         f"relative + {GRAD_ATOL} of each one's largest magnitude; largest "
         f"max|err|/max|g| {worst[0]:.3e} ({worst[1]})")
 
@@ -760,11 +808,13 @@ def step_ms(trainer, state, batches, reps: int = 20):
     (ms, state, steps run)."""
     import torch
     pairs = []
+    step = int(state.step)      # the steps' numbers for dropout masks
     for i in range(reps + 3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        state, _ = trainer.train_step(state, batches[i % len(batches)])
+        state, _ = trainer.train_step(state, batches[i % len(batches)],
+                                      step + i)
         end.record()
         if i >= 3:
             pairs.append((start, end))
@@ -820,14 +870,17 @@ def busy_ms(trainer, state, batches, steps: int = 5):
     from torch.profiler import ProfilerActivity, profile
     from x2gnn_tpu_torch.profile_serving import device_rows
 
+    step = int(state.step)      # the steps' numbers for dropout masks
     for i in range(3):
-        state, _ = trainer.train_step(state, batches[i % len(batches)])
+        state, _ = trainer.train_step(state, batches[i % len(batches)],
+                                      step + i)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
-            state, _ = trainer.train_step(state, batches[i % len(batches)])
+            state, _ = trainer.train_step(state, batches[i % len(batches)],
+                                          step + 3 + i)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     busy = sum(r[0] for r in device_rows(prof)) / 1e3
@@ -1149,6 +1202,432 @@ def check_run_io(mcfg, graphs, qm9, device, card, steps_per_epoch):
             raise AssertionError("pth: the round trip changed the model")
 
 
+# ---- phase 9: the gap recipe (molwise readout, attention dropout) ----
+
+GAP_ARGS = os.path.join(REPO, "runs", "gap_r5_50k", "args.json")
+DROP_RATES = (0.1, 0.4)      # the recipe's rate, and one that drops many
+
+
+def gap_training_configs():
+    """The gap recipe's (ModelConfig, TrainConfig) as written."""
+    from x2gnn_tpu_torch.config import load_configs
+    return load_configs(GAP_ARGS)
+
+
+def keep_mask(shape, rate, seed, device):
+    """A keep mask pre-scaled by 1/keep, from a seeded numpy generator."""
+    import numpy as np
+    import torch
+    keep = np.float32(1.0 - rate)
+    draw = np.random.default_rng(seed).random(shape) < keep
+    return torch.from_numpy(draw.astype(np.float32) / keep).to(device)
+
+
+def masked_work(args, heads, num_radial, variant):
+    """(bytes, FP32 operations) of one kernel instance on these inputs:
+    attention_work / attention_bwd_work, plus 4 B per valid pair and head
+    for the mask (read at valid pairs only) and for galpha, and the whole
+    (N, DI, DK, H) alpha output written; one operation per valid pair and
+    head for the mask (forward) or two (backward), one for alpha, three
+    for galpha."""
+    q = args[0]
+    N, DI, HC = q.shape
+    DK = args[1].shape[1]
+    pair_heads = int(valid_pairs(args).sum()) * heads
+    if variant.startswith("fwd"):
+        nbytes, ops, _ = attention_work(args, heads, num_radial,
+                                        q.numel() * 4)
+        ops += pair_heads * (("drop" in variant) + ("alpha" in variant))
+        nbytes += 4 * pair_heads * ("drop" in variant)
+        nbytes += 4 * N * DI * DK * heads * ("alpha" in variant)
+        return nbytes, ops
+    nbytes, _, ops, _ = attention_bwd_work(args, q, q, heads, num_radial)
+    nbytes += 4 * pair_heads * (("drop" in variant) + ("galpha" in variant))
+    ops += pair_heads * (2 * ("drop" in variant) + 3 * ("galpha" in variant))
+    return nbytes, ops
+
+
+def _held(tag, name, got, ref, rtol, atol_scale):
+    """got against ref within atol_scale * max|ref| + rtol |ref|, finite;
+    returns max |got - ref|."""
+    import torch
+    err = (got - ref).abs()
+    limit = atol_scale * float(ref.abs().max()) + rtol * ref.abs()
+    bad = int((err > limit).sum())
+    if bad or not torch.isfinite(got).all():
+        raise AssertionError(f"{tag}: {bad} elements of {name} disagree "
+                             "with the plain version (or are not finite)")
+    return float(err.max())
+
+
+def check_masked_window(tag, args, cfg, seed, timed):
+    """Phase 9a on one window: the forward's drop and drop+alpha instances
+    and the backward's drop and drop+galpha instances against their plain
+    versions, under a seeded mask at each rate of DROP_RATES: within phase
+    3's tolerances, bitwise equal across two runs, dead query rows 0 and
+    alpha 0 at invalid pairs (its valid rows summing to 1). With `timed`,
+    each instance's device time back to back (backlog_ms) in turns with
+    the instance without mask and alpha, its plain version's time, its
+    bound and its resident warps; returns {variant: record}."""
+    import numpy as np
+    import torch
+    from x2gnn_tpu_torch.ops.blocked_attn import (
+        blocked_attention_bwd, blocked_attention_bwd_partials,
+        blocked_attention_bwd_plain, blocked_attention_fwd,
+        blocked_attention_plain, bwd_occupancy, bwd_plan, fwd_occupancy,
+        fwd_plan)
+
+    H, K = cfg.heads, cfg.rbf_dim
+    N, DI, HC = args[0].shape
+    DK = args[1].shape[1]
+    dev = args[0].device
+    tag = f"{tag} N={N} DI={DI} DK={DK}"
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.normal(size=(N, DI, HC)).astype(
+        np.float32)).to(dev)
+    galpha = torch.from_numpy(rng.normal(size=(N, DI, DK, H)).astype(
+        np.float32)).to(dev)
+    valid = valid_pairs(args)
+    dead = args[8] < 0
+    err = {}
+    for r, rate in enumerate(DROP_RATES):
+        m = keep_mask((N, DI, DK, H), rate, seed + 1 + r, dev)
+        for name, want_alpha in (("fwd drop", False),
+                                 ("fwd drop+alpha", True)):
+            kw = dict(heads=H, num_radial=K, dropout_mask=m,
+                      return_alpha=want_alpha)
+            got = blocked_attention_fwd(*args, **kw)
+            again = blocked_attention_fwd(*args, **kw)
+            ref = blocked_attention_plain(*args, **kw)
+            got, again, ref = [x if want_alpha else (x,)
+                               for x in (got, again, ref)]
+            e = max(_held(f"{name} {tag}", n, a, b, KERNEL_RTOL,
+                          KERNEL_ATOL)
+                    for n, a, b in zip(("out", "alpha"), got, ref))
+            err[name] = max(err.get(name, 0.0), e)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name} {tag}: two runs differ")
+            if (got[0][dead] != 0).any():
+                raise AssertionError(f"{name} {tag}: a dead row is not 0")
+            if want_alpha:
+                alpha = got[1]
+                sums = alpha.sum(dim=2)[valid.any(dim=2)]
+                if (alpha[~valid] != 0).any() or (
+                        (sums - 1).abs() > 1e-5).any():
+                    raise AssertionError(f"{name} {tag}: alpha is not the "
+                                         "softmax")
+            else:
+                out = got[0]
+        for name, ga in (("bwd drop", None), ("bwd drop+galpha", galpha)):
+            kw = dict(heads=H, num_radial=K, out=out, dropout_mask=m,
+                      galpha=ga)
+            got = blocked_attention_bwd(*args, g, **kw)
+            again = blocked_attention_bwd(*args, g, **kw)
+            ref = blocked_attention_bwd_plain(*args, g, **kw)
+            e = max(_held(f"{name} {tag}", n, a, b, BWD_RTOL, BWD_ATOL)
+                    for n, a, b in zip(GRAD_NAMES, got, ref))
+            err[name] = max(err.get(name, 0.0), e)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name} {tag}: two runs differ")
+        log(f"[masked {tag}] rate {rate}: {float((m == 0).float().mean()):.3f}"
+            " of the mask 0; fwd drop, drop+alpha, bwd drop, drop+galpha "
+            "within phase 3's tolerances of their plain versions, reruns "
+            "bitwise")
+    log(f"[masked {tag}] max_abs_err " + ", ".join(
+        f"{k} {v:.3e}" for k, v in err.items()))
+    if not timed:
+        return None
+
+    m = keep_mask((N, DI, DK, H), DROP_RATES[0], seed + 1, dev)
+    out = blocked_attention_fwd(*args, heads=H, num_radial=K,
+                                dropout_mask=m)
+    L = args[4].shape[-1] // K
+    fplan, bplan = (fwd_plan(N, DI, DK, HC, H, L, K),
+                    bwd_plan(N, DI, DK, HC, H, L, K))
+    calls = {
+        "fwd": lambda: blocked_attention_fwd(*args, heads=H, num_radial=K),
+        "fwd drop": lambda: blocked_attention_fwd(
+            *args, heads=H, num_radial=K, dropout_mask=m),
+        "fwd drop+alpha": lambda: blocked_attention_fwd(
+            *args, heads=H, num_radial=K, dropout_mask=m, return_alpha=True),
+        "bwd": lambda: blocked_attention_bwd_partials(
+            *args, g, heads=H, num_radial=K, out=out),
+        "bwd drop": lambda: blocked_attention_bwd_partials(
+            *args, g, heads=H, num_radial=K, out=out, dropout_mask=m),
+        "bwd drop+galpha": lambda: blocked_attention_bwd_partials(
+            *args, g, heads=H, num_radial=K, out=out, dropout_mask=m,
+            galpha=galpha)}
+    plain = {
+        "fwd drop": lambda: blocked_attention_plain(
+            *args, heads=H, num_radial=K, dropout_mask=m),
+        "fwd drop+alpha": lambda: blocked_attention_plain(
+            *args, heads=H, num_radial=K, dropout_mask=m, return_alpha=True),
+        "bwd drop": lambda: blocked_attention_bwd_plain(
+            *args, g, heads=H, num_radial=K, out=out, dropout_mask=m),
+        "bwd drop+galpha": lambda: blocked_attention_bwd_plain(
+            *args, g, heads=H, num_radial=K, out=out, dropout_mask=m,
+            galpha=galpha)}
+    turns = {}
+    for side in ("fwd", "bwd"):
+        names = [n for n in calls if n.startswith(side)]
+        for name in names + names[::-1]:      # in turns, there and back
+            turns.setdefault(name, []).append(backlog_ms(calls[name]))
+    records = {}
+    for name, fn in plain.items():
+        nbytes, ops = masked_work(args, H, K, name)
+        bound_ms, bound_by, t_bytes, t_ops = bound(nbytes, ops)
+        variant = name.split()[1]
+        occ = (fwd_occupancy(fplan, variant) if name.startswith("fwd")
+               else bwd_occupancy(bplan, variant))
+        side = name.split()[0]
+        ms = turns[name][0]
+        records[name] = {
+            "ms": ms, "ms_turns": turns[name],
+            "ms_without_mask": turns[side], "plain_ms": median_ms(fn),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err[name], "library_ms": None,
+            "warps_per_sm": occ["warps_per_sm"],
+            "registers": occ["registers"], "spill_bytes": occ["spill_bytes"]}
+        log(f"[masked {tag}] {name}: {turns[name][0]:.4f} / "
+            f"{turns[name][1]:.4f} ms back to back, without mask "
+            f"{turns[side][0]:.4f} / {turns[side][1]:.4f} (in turns); plain "
+            f"{records[name]['plain_ms']:.4f} ms; {nbytes} bytes "
+            f"({t_bytes:.4f} ms), {ops} ops ({t_ops:.4f} ms): "
+            f"{ms / bound_ms:.1f}x its bound; {occ['registers']} registers, "
+            f"{occ['spill_bytes']} B spilled, {occ['warps_per_sm']} warps "
+            "per SM")
+    return records
+
+
+def check_gap_launches(trainer, records, shapes, tag):
+    """Phase 9c: every training step launched the drop instances of both
+    kernels, conv_layers x its windows, and every evaluation the plain
+    forward; nothing else."""
+    L = trainer.mcfg.conv_layers
+    epochs = len(records)
+    improved = sum(r["test_mae"] is not None and r["val_mae"]
+                   == r["best_val_mae"] for r in records)
+    train_w = n_windows(trainer.batches(trainer.train_idx)) * epochs
+    eval_w = (n_windows(trainer.batches(trainer.val_idx)) * epochs
+              + n_windows(trainer.batches(trainer.test_idx)) * improved)
+    got = {"fwd": per_variant(shapes["fwd_variants"]),
+           "bwd": per_variant(shapes["bwd_variants"])}
+    expect = {"fwd": {"drop": L * train_w, "plain": L * eval_w},
+              "bwd": {"drop": L * train_w}}
+    log(f"[{tag}] launches per variant {json.dumps(got)} (expected "
+        f"{json.dumps(expect)}: {L} layers x {train_w} train windows with "
+        f"the mask, {eval_w} eval windows without)")
+    if got != expect:
+        raise AssertionError(f"{tag}: launches per variant {got}, expected "
+                             f"{expect}")
+
+
+def alpha_on_a_path(mcfg, batch, device):
+    """Phase 9d: the gap model's first conv with return_attention_weights
+    on the packed batch, dropout drawn, a loss of its output and alpha,
+    backward: one drop+alpha forward and one drop+galpha backward per
+    window; alpha (N, D, D, H) is a softmax over the valid pairs and 0
+    elsewhere. Returns the counts per shape and variant."""
+    import numpy as np
+    import torch
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN, blocked_geometry
+    from x2gnn_tpu_torch.ops.blocked_attn import reset_launch_counts
+
+    model = X2GNN(mcfg, torch.Generator().manual_seed(0), device=device)
+    geo = blocked_geometry(batch, mcfg)
+    whole = blocked_geometry(dataclasses.replace(
+        batch, tiers=(), n_hi=0, d_lo=0), mcfg).windows[0]
+    N, D = batch.in_edges.shape
+    rng = np.random.default_rng(93)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(device)
+
+    x = normal(N, D, mcfg.in_channels)
+    rbf = normal(N, D, mcfg.rbf_dim)
+    edge_attr = normal(N, mcfg.embedding_size)
+    w = normal(N, D, D, mcfg.heads)
+    reset_launch_counts()
+    out, alpha = model.conv_0(
+        x, rbf, edge_attr, geo.out2in, geo.in2out, geo.mask_flat,
+        geo.windows, deterministic=False,
+        generator=torch.Generator(device=device).manual_seed(3),
+        return_attention_weights=True)
+    loss = (out * out).mean() + (alpha * w).sum()
+    grads = torch.autograd.grad(loss, list(model.conv_0.parameters()))
+    torch.cuda.synchronize()
+    shapes = launch_shapes()
+    valid = ((whole.a_ids[:, :, None] != whole.b_ids[:, None, :])
+             & (whole.a_ids >= 0)[:, :, None] & (whole.b_ids >= 0)[:, None, :])
+    rows = valid.any(dim=2)
+    alpha = alpha.detach()
+    sums = alpha.sum(dim=2)[rows]
+    log(f"[alpha path] conv_0 with return_attention_weights on the packed "
+        f"batch N={N}, D={D}: alpha {tuple(alpha.shape)}, valid rows sum to "
+        f"1 within {float((sums - 1).abs().max()):.2e}, launches per "
+        f"variant fwd {per_variant(shapes['fwd_variants'])}, bwd "
+        f"{per_variant(shapes['bwd_variants'])}")
+    n = len(geo.windows)
+    if (tuple(alpha.shape) != (N, D, D, mcfg.heads)
+            or (alpha[~valid] != 0).any()
+            or float((sums - 1).abs().max()) > 1e-5
+            or not all(torch.isfinite(t).all() for t in (out, *grads))):
+        raise AssertionError("alpha path: wrong alpha or non-finite output")
+    if (per_variant(shapes["fwd_variants"]) != {"drop+alpha": n}
+            or per_variant(shapes["bwd_variants"]) != {"drop+galpha": n}):
+        raise AssertionError(f"alpha path: launches {shapes}")
+    return shapes
+
+
+def gap_recipe(card, device, train_graphs, aid, packed, pstate,
+               packed_records):
+    """Phase 9: the gap recipe on the card; `packed` is phase 6a's trainer
+    of the flagship recipe, `pstate` its state and `packed_records` its
+    metrics, timed beside it. Returns (rows of the kernels line, the
+    records of the 2-epoch run)."""
+    import torch
+    from x2gnn_tpu_torch.data.batching import pad_graphs
+    from x2gnn_tpu_torch.ops.blocked_attn import reset_launch_counts
+    from x2gnn_tpu_torch.utils.determinism import (
+        check_train_step_determinism)
+
+    gcfg, gtcfg = gap_training_configs()
+    gtcfg = dataclasses.replace(gtcfg, max_epoch=2)
+    log(f"[gap] recipe from runs/gap_r5_50k/args.json: readout "
+        f"{gcfg.readout}, dropout {gcfg.dropout}, target {gtcfg.target}, "
+        f"pack_mixed {gtcfg.pack_mixed}; cut to 2 epochs of its 200 and "
+        f"{len(train_graphs)} synthetic molecules instead of its 50k")
+    if (gcfg.readout, gcfg.dropout, gtcfg.pack_mixed) != (
+            "molwise_mean", 0.1, True):
+        raise AssertionError(f"gap configs {gcfg}, {gtcfg}")
+
+    # 9c: the recipe as written on the flagship's 512 molecules
+    gap, gstate, grecords, _, gshapes = train_flagship(
+        gcfg, gtcfg, train_graphs, device, "gap")
+    check_gap_launches(gap, grecords, gshapes, "gap")
+    gap_batches = gap.batches(gap.train_idx)
+    report = check_train_step_determinism(gap, repeats=2)
+    log(f"[gap] train step with dropout, 2 repeats: mismatches "
+        f"{json.dumps(report['mismatches'])}")
+    if not report["deterministic"]:
+        raise AssertionError("gap: the training step differs between two "
+                             "runs")
+    check_resume(gcfg, gtcfg, train_graphs, device, card, grecords)
+    # the training CLI on the recipe as written, 1 epoch on 512 molecules
+    with tempfile.TemporaryDirectory() as work:
+        run_cli(["x2gnn_tpu_torch.train", "--config", GAP_ARGS,
+                 "--synthetic", str(len(train_graphs)), "--epochs", "1",
+                 "--pack-mixed", "--workdir", work], "gap cli train")
+        (record,) = read_records(work)
+        with open(os.path.join(work, "args.json")) as f:
+            saved = json.load(f)["model"]
+    log(f"[gap cli train] epoch 1: loss {record['loss']:.6f} val_mae "
+        f"{record['val_mae']:.6f} step {record['step']} bad_steps "
+        f"{record['bad_steps']}; readout {saved['readout']}, dropout "
+        f"{saved['dropout']}")
+    if (not math.isfinite(record["loss"]) or record["bad_steps"]
+            or (saved["readout"], saved["dropout"]) != ("molwise_mean",
+                                                        0.1)):
+        raise AssertionError(f"gap cli train: {record}, {saved}")
+    packed_batches = packed.batches(packed.train_idx)
+    turns, busy = {}, {}
+    states = {"gap": gstate, "flagship": pstate}
+    for tag, trainer, batches in (("gap", gap, gap_batches),
+                                  ("flagship", packed, packed_batches),
+                                  ("flagship", packed, packed_batches),
+                                  ("gap", gap, gap_batches)):
+        ms, states[tag], _ = step_ms(trainer, states[tag], batches)
+        turns.setdefault(tag, []).append(ms)
+    for tag, trainer, batches in (("gap", gap, gap_batches),
+                                  ("flagship", packed, packed_batches),
+                                  ("flagship", packed, packed_batches),
+                                  ("gap", gap, gap_batches)):
+        # 2 traced steps a turn: tracing and reading a step's thousand
+        # launches takes seconds, and the busy time varies by < 1%
+        b, wall, states[tag] = busy_ms(trainer, states[tag], batches,
+                                       steps=2)
+        busy.setdefault(tag, []).append((b, wall))
+    log(f"[gap] {card}: ms per packed training step (median of 20, CUDA "
+        f"events, in turns): gap {turns['gap'][0]:.3f} / "
+        f"{turns['gap'][1]:.3f}, flagship {turns['flagship'][0]:.3f} / "
+        f"{turns['flagship'][1]:.3f}")
+    log(f"[gap] {card}: device busy / wall ms per step (2 steps traced, "
+        "in turns): gap " + " / ".join(f"{b:.3f} / {w:.3f}"
+                                        for b, w in busy["gap"])
+        + ", flagship " + " / ".join(f"{b:.3f} / {w:.3f}"
+                                      for b, w in busy["flagship"]))
+    log(f"[gap] {card}: training molecules/s per epoch (wall clock, incl. "
+        "eval and checkpoints): gap " + ", ".join(
+            f"{r['molecules_per_sec']:.1f}" for r in grecords)
+        + "; flagship (phase 6a) " + ", ".join(
+            f"{r['molecules_per_sec']:.1f}" for r in packed_records))
+
+    # 9b: one step on the card against the CPU under the same masks, on
+    # the first packed batch as the Trainer builds it on the host
+    chunks, budgets, _ = gap.plan(gap.train_idx)
+    host = pad_graphs([train_graphs[i] for i in chunks[0]], budgets[0],
+                      n_graph=budgets[0].n_graph or gtcfg.batch_size,
+                      targets=gap.targets[chunks[0]])
+    check_step_on_card_and_cpu(gcfg, None, device, tag="gap card vs cpu",
+                               batch=host)
+    # one gap step at AID scale: the drop instances at a D > 40 tier
+    aid_tcfg = dataclasses.replace(gtcfg, pack_mixed=False, batch_size=4)
+    aid_batch, _, aid_shapes = train_one_step(gcfg, aid_tcfg, aid, device,
+                                              "gap AID")
+    aid_tier = windows_of(aid_batch)[0]
+    # 9d: alpha on a path
+    alpha_shapes = alpha_on_a_path(gcfg, gap_batches[0], device)
+
+    # 9a: the instances against their plain versions, timed
+    args = batch_kernel_inputs(gap_batches[0], gcfg, seed=94)
+    rows = []
+    for t, win in enumerate(windows_of(gap_batches[0])):
+        recs = check_masked_window(f"gap tier {t}", window_args(args, win),
+                                   gcfg, seed=100 + 10 * t, timed=True)
+        ichunk = win[3] > 40
+        shape = window_shape(win)
+        note = f"packed tier {t}, {win} of the first packed batch"
+        for name, rec in recs.items():
+            side, variant = name.split()
+            counts = (gshapes if variant == "drop" else alpha_shapes)[
+                f"{side}_variants"]
+            line = {"fwd": 282 if ichunk else 166,
+                    "bwd": 346 if ichunk else 198}[side]
+            rows.append({
+                "name": f"blocked_attn_{side} ({variant}, packed tier {t})",
+                "route": "cuda",
+                "source": f"x2gnn_tpu_torch/ops/csrc/blocked_attn_{side}.cu",
+                "replaces": f"{PALLAS}:{line}",
+                "launches": counts.get((variant, *shape), 0),
+                "window": note, **rec})
+    check_masked_window("gap one window", args, gcfg, seed=95, timed=False)
+    aid_recs = check_masked_window(
+        "gap AID tier 0", window_args(batch_kernel_inputs(
+            aid_batch, gcfg, seed=96), aid_tier), gcfg, seed=97, timed=True)
+    for name in ("fwd drop", "bwd drop"):
+        side = name.split()[0]
+        rows.append({
+            "name": f"blocked_attn_{side} (drop, D>40, training tier)",
+            "route": "cuda",
+            "source": f"x2gnn_tpu_torch/ops/csrc/blocked_attn_{side}.cu",
+            "replaces": f"{PALLAS}:{282 if side == 'fwd' else 346}",
+            "launches": aid_shapes[f"{side}_variants"].get(
+                ("drop", *window_shape(aid_tier)), 0),
+            "window": f"gap AID-scale step, tier {aid_tier}",
+            **aid_recs[name]})
+    for side in ("fwd", "bwd"):
+        for variant in ("drop", "drop+alpha" if side == "fwd"
+                        else "drop+galpha"):
+            sel = [r for r in rows if r["name"].startswith(
+                f"blocked_attn_{side} ({variant}, packed")]
+            log(f"[gap] {side} {variant} over the 8 tiers: "
+                f"{sum(r['ms'] for r in sel):.4f} ms back to back, without "
+                f"mask {sum(r['ms_without_mask'][0] for r in sel):.4f}; "
+                f"launches {sum(r['launches'] for r in sel)}")
+    reset_launch_counts()
+    return rows, grecords
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1329,6 +1808,11 @@ def main() -> int:
     check_window("train HC=1024", window_args(wide_args,
                                               (0, 256, n_slots, n_slots)),
                  cfg_wide, seed=31)
+    # the mask and alpha instances at that width (phase 9a's checks): the
+    # pair arrays indexed across 8 channel groups of 16 heads
+    check_masked_window("train HC=1024", window_args(
+        wide_args, (0, 128, n_slots, n_slots)), cfg_wide, seed=33,
+        timed=False)
     del wide_args
     # every other head width the kernel takes, on the same batch: C = 1, 2
     # (scalar scores), 4, 16, 32 (16-byte loads), beside the flagship's 8
@@ -1388,7 +1872,12 @@ def main() -> int:
     spe = check_resume(mcfg, tcfg, train_graphs, device, card,
                        packed_records)
     check_run_io(mcfg, train_graphs, qm9, device, card, spe)
-    log(f"[phase 8] done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 9. the gap recipe: molwise readout, attention dropout ----
+    log(f"[phase 9] starts at {time.perf_counter() - t_start:.1f} s")
+    gap_rows, _ = gap_recipe(card, device, train_graphs, aid, packed, pstate,
+                             packed_records)
+    log(f"[phase 9] done at {time.perf_counter() - t_start:.1f} s")
 
     fwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_fwd.cu"
     bwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_bwd.cu"
@@ -1449,6 +1938,7 @@ def main() -> int:
          "source": bwd_src, "replaces": f"{PALLAS}:271",
          "launches": packed_counts["reduce"],
          "window": f"partials of packed tier {win}", **red})
+    kernels += gap_rows
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise AssertionError(f"rows not launched on their path: {idle}")

@@ -22,7 +22,7 @@ from x2gnn_tpu_torch.data.synthetic import synthetic_dataset
 from x2gnn_tpu_torch.infer import (
     Predictor, load_run_configs, quantize_budgets)
 from x2gnn_tpu_torch.models.x2gnn import X2GNN
-from x2gnn_tpu_torch.weights import load_flax_params
+from x2gnn_tpu_torch.weights import export_flax_params, load_flax_params
 
 # the flagship's structure (blocked, v1, atomwise, L=7, K=6) at small width
 SMALL = dict(conv_layers=2, in_channels=32, embedding_size=32, heads=4,
@@ -98,10 +98,17 @@ def test_predictor_matches_reference():
                                atol=1e-4 * np.abs(ref).max())
 
 
-def test_load_flax_params_fills_every_parameter(problem):
-    _, params, _ = problem
+@pytest.mark.parametrize("readout", ["atomwise", "molwise_mean"])
+def test_load_flax_params_fills_every_parameter(problem, readout):
+    """Every flax leaf fills one port parameter; the molecule-wise
+    readouts' MLP layers (TorchDense) nest a Dense_0 as the atom-wise
+    ones' (Dense) do, and export_flax_params gives the paths back."""
+    jb, params, _ = problem
+    cfg = dict(SMALL, readout=readout)
+    if readout != "atomwise":
+        params = _jax_params(JaxModelConfig(use_pallas=False, **cfg), jb)
     flat = export_params_flat(params)
-    model = X2GNN(ModelConfig(**SMALL), device="cpu")
+    model = X2GNN(ModelConfig(**cfg), device="cpu")
     n_port = sum(1 for _ in model.parameters())
     assert n_port == len(flat)
     load_flax_params(model, flat)
@@ -112,6 +119,10 @@ def test_load_flax_params_fills_every_parameter(problem):
     np.testing.assert_array_equal(
         state["conv_0.lin_sbf.kernel"].detach().numpy(),
         flat["conv_0/lin_sbf/kernel"])
+    np.testing.assert_array_equal(
+        state["readout_1.mlp.mlp_0.weight"].detach().numpy(),
+        flat["readout_1/mlp/mlp_0/Dense_0/kernel"].T)
+    assert export_flax_params(model).keys() == flat.keys()
     with pytest.raises(KeyError, match="maps to no port parameter"):
         load_flax_params(model, {**flat, "conv_0/lin_extra/kernel": k})
     partial = dict(flat)
@@ -142,8 +153,8 @@ def test_load_run_configs_reads_a_reference_config_json(tmp_path):
 
 @pytest.mark.parametrize("field,value", [
     ("attention_layout", "segment"), ("variant", "v2"),
-    ("readout", "molwise_mean"), ("compute_dtype", "bfloat16"),
-    ("dropout", 0.1), ("beta", True)])
+    ("param_dtype", "bfloat16"), ("compute_dtype", "bfloat16"),
+    ("attention_layout", "padded"), ("beta", True)])
 def test_unported_options_raise(field, value):
     cfg = dataclasses.replace(ModelConfig(**SMALL), **{field: value})
     with pytest.raises(NotImplementedError):

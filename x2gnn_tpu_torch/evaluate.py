@@ -8,7 +8,10 @@ data was.
         --synthetic 64 --device cpu
 
 The run's args.json, standardization.json and atomref.json are read from
-the checkpoint's directory unless --config / --stats say otherwise. The
+the checkpoint's directory unless --config / --stats say otherwise.
+--target picks the readout as the training CLI does (atomwise for the
+extensive targets 6-11, else molwise_mean: a gap-recipe run takes
+--target 4). The
 data's featurization basis is held against the run's provenance.json
 (--allow-basis-mismatch turns the refusal into a warning). The EMA
 weights are evaluated unless --use-live-params. Prints one JSON line

@@ -1,10 +1,11 @@
 """X2GNN in the atom-blocked layout (x2gnn_tpu/models/x2gnn.py).
 
-The port covers the flagship configuration: attention_layout='blocked',
-variant 'v1', atomwise readout, float32, on the fused-kernel formulation
-of the reference (`z` = clip(cos/norm) and masked atom-id tables, the
-kernel computes the Legendre harmonics) on every device. Anything else
-raises NotImplementedError until its slice.
+The port covers attention_layout='blocked', variant 'v1', float32, the
+atom-wise and both molecule-wise readouts and attention dropout (the
+flagship and the gap recipe), on the fused-kernel formulation of the
+reference (`z` = clip(cos/norm) and masked atom-id tables, the kernel
+computes the Legendre harmonics) on every device. Anything else raises
+NotImplementedError until its slice.
 
 A batch's degree tiers or two-tier split (`GraphBatch.tiers`, `n_hi`,
 `d_lo`) choose the attention windows of every conv, one kernel call each
@@ -14,7 +15,7 @@ only; the port always runs the kernel formulation, so it always does.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +28,7 @@ from x2gnn_tpu_torch.nn.conv import BlockedEdgeAttentionConv
 from x2gnn_tpu_torch.nn.layers import (
     Dense, EmbeddingBlock, RadialBasisLayer, ResidualLayer)
 from x2gnn_tpu_torch.nn.norm import GraphLayerNorm
-from x2gnn_tpu_torch.nn.readout import AtomWiseReadout
+from x2gnn_tpu_torch.nn.readout import AtomWiseReadout, MolWiseReadout
 from x2gnn_tpu_torch.ops.attention import injective_gather, inverse_slots
 from x2gnn_tpu_torch.ops.basis import poly_envelope, sbf_radial_part
 from x2gnn_tpu_torch.ops.segment import segment_sum
@@ -124,23 +125,32 @@ def blocked_geometry(batch: GraphBatch, cfg: ModelConfig) -> BlockedGeometry:
                            windows)
 
 
+READOUTS = ("atomwise", "molwise_mean", "molwise_add")
+
+
 def _check_config(cfg: ModelConfig) -> None:
     unsupported = {
-        "attention_layout": (cfg.attention_layout, "blocked"),
-        "variant": (cfg.variant, "v1"),
-        "readout": (cfg.readout, "atomwise"),
-        "compute_dtype": (cfg.compute_dtype, "float32"),
-        "param_dtype": (cfg.param_dtype, "float32"),
+        "attention_layout": (cfg.attention_layout, ("blocked",)),
+        "variant": (cfg.variant, ("v1",)),
+        "readout": (cfg.readout, READOUTS),
+        "compute_dtype": (cfg.compute_dtype, ("float32",)),
+        "param_dtype": (cfg.param_dtype, ("float32",)),
     }
     for name, (got, want) in unsupported.items():
-        if got != want:
+        if got not in want:
             raise NotImplementedError(
-                f"{name}={got!r} is not ported yet (only {want!r})")
+                f"{name}={got!r} is not ported yet (only {want})")
 
 
 class X2GNN(nn.Module):
     """Per-molecule predictions (G,) from a blocked-layout GraphBatch of
-    torch tensors (`GraphBatch.to(device)`)."""
+    torch tensors (`GraphBatch.to(device)`). `forward(batch,
+    deterministic=False, generator=g)` trains with attention dropout, each
+    conv drawing its mask from `g` in layer order (the reference's
+    'dropout' rng stream); `dropout_masks`, one (N, D, D, H) mask per conv,
+    replaces the draws (tests and the card-vs-CPU check). The default,
+    deterministic=True, never drops: serving, evaluation and the Trainer's
+    eval step."""
 
     def __init__(self, config: ModelConfig,
                  generator: Optional[torch.Generator] = None,
@@ -158,8 +168,15 @@ class X2GNN(nn.Module):
         self.edgenn_0 = Dense(emb, emb, generator=g)
         self.edgenn_1 = Dense(emb, emb, generator=g)
         for i in range(cfg.conv_layers + 1):
-            self.add_module(f"readout_{i}", AtomWiseReadout(
-                ch, cfg.rbf_dim, mlp_depth=cfg.mlp_depth, generator=g))
+            if cfg.readout == "atomwise":
+                readout = AtomWiseReadout(ch, cfg.rbf_dim,
+                                          mlp_depth=cfg.mlp_depth,
+                                          generator=g)
+            else:
+                readout = MolWiseReadout(
+                    ch, cfg.rbf_dim, mlp_depth=cfg.mlp_depth,
+                    pool=cfg.readout[len("molwise_"):], generator=g)
+            self.add_module(f"readout_{i}", readout)
         for i in range(cfg.conv_layers):
             self.add_module(f"conv_{i}", BlockedEdgeAttentionConv(
                 ch, cfg.heads, sbf_l=cfg.sbf_dim, sbf_k=cfg.rbf_dim,
@@ -176,8 +193,15 @@ class X2GNN(nn.Module):
     def _layer(self, name: str) -> nn.Module:
         return getattr(self, name)
 
-    def forward(self, batch: GraphBatch) -> torch.Tensor:
+    def forward(self, batch: GraphBatch, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                dropout_masks: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
         cfg = self.config
+        if dropout_masks is not None and len(dropout_masks) != \
+                cfg.conv_layers:
+            raise ValueError(f"{len(dropout_masks)} dropout masks for "
+                             f"{cfg.conv_layers} conv layers")
         N, D = batch.in_edges.shape
         num_graphs = batch.y.shape[0]
         geo = blocked_geometry(batch, cfg)
@@ -206,8 +230,13 @@ class X2GNN(nn.Module):
             return torch.where(out_mask3, g_out, 0.0).sum(dim=1)
 
         def run_readout(i: int, x):
+            if cfg.readout == "atomwise":
+                return self._layer(f"readout_{i}")(
+                    x, node_rbf_flat, src_flat, N, edge_mask=mask_flat,
+                    aggregate=edges_to_src_atoms)
             return self._layer(f"readout_{i}")(
-                x, node_rbf_flat, src_flat, N, edge_mask=mask_flat,
+                x, node_rbf_flat, src_flat, batch.atom_gid, N, num_graphs,
+                edge_mask=mask_flat, node_mask=batch.node_mask,
                 aggregate=edges_to_src_atoms)
 
         # ---- conv stack with deep supervision (x2gnn.py:228-274,312-328)
@@ -217,7 +246,10 @@ class X2GNN(nn.Module):
             res0 = out
             out = self._layer(f"conv_{i}")(
                 out.reshape(N, D, cfg.in_channels), node_rbf, edge_attr,
-                geo.out2in, geo.in2out, mask_flat, geo.windows)
+                geo.out2in, geo.in2out, mask_flat, geo.windows,
+                deterministic=deterministic, generator=generator,
+                dropout_mask=(None if dropout_masks is None
+                              else dropout_masks[i]))
             out = out.reshape(-1, cfg.in_channels)
             out = self._layer(f"norm_{i}")(out, gid_flat, num_graphs,
                                            mask=mask_flat)
@@ -228,7 +260,9 @@ class X2GNN(nn.Module):
             out = self._layer(f"af_skip_{i}_1")(out)
             results = results + run_readout(i + 1, out)
 
-        # per-atom scalars -> molecule sums
-        results = segment_sum(results, batch.atom_gid, num_graphs,
-                              mask=batch.node_mask)
+        if cfg.readout == "atomwise":
+            # per-atom scalars -> molecule sums (the molecule-wise
+            # readouts pooled already: x2gnn.py:322-325)
+            results = segment_sum(results, batch.atom_gid, num_graphs,
+                                  mask=batch.node_mask)
         return results.reshape(-1)

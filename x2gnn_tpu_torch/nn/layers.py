@@ -119,16 +119,21 @@ class EmbeddingBlock(nn.Module):
 
 
 class MLPHead(nn.Module):
-    """(depth-1) x [Linear, SiLU] + Linear(num_target)."""
+    """(depth-1) x [Linear, SiLU] + Linear(num_target). Its layers are
+    Dense (Glorot-orthogonal, the atom-wise readout), or with
+    `torch_default_init` TorchDense, as the molecule-wise readout leaves
+    them (x2gnn_tpu/nn/layers.py:147-170)."""
 
     def __init__(self, features: int, num_target: int = 1, depth: int = 3,
+                 torch_default_init: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.depth = depth
+        cls = TorchDense if torch_default_init else Dense
         for i in range(depth - 1):
-            self.add_module(f"mlp_{i}", Dense(features, features,
-                                              generator=generator))
-        self.mlp_out = Dense(features, num_target, generator=generator)
+            self.add_module(f"mlp_{i}", cls(features, features,
+                                            generator=generator))
+        self.mlp_out = cls(features, num_target, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.depth - 1):

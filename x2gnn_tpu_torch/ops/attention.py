@@ -1,6 +1,9 @@
-"""Blocked-layout gathers (x2gnn_tpu/ops/attention.py:29-62)."""
+"""Blocked-layout gathers (x2gnn_tpu/ops/attention.py:29-62) and the
+attention-dropout keep mask (:201-211)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -45,3 +48,19 @@ def inverse_slots(table: torch.Tensor, table_mask: torch.Tensor,
     out = torch.zeros(num_rows + 1, dtype=table.dtype, device=table.device)
     slots = torch.arange(N * D, dtype=table.dtype, device=table.device)
     return out.scatter_(0, rows, slots)[:num_rows]
+
+
+def pair_dropout_mask(generator: Optional[torch.Generator], rate: float,
+                      N: int, D: int, H: int,
+                      device="cpu") -> torch.Tensor:
+    """Attention-dropout keep mask (N, D, D, H) float32 in the canonical
+    pair space (atom, in-slot, out-slot, head), pre-scaled by 1/keep: each
+    element 1/(1 - rate) with probability 1 - rate, else 0
+    (x2gnn_tpu/ops/attention.py:201-211). Drawn by torch.bernoulli from
+    `generator` (None: torch's default generator), which must live on
+    `device`. A conv draws one per call and cuts every attention window
+    from it, so the tiered and the one-window model drop the same
+    weights."""
+    keep = 1.0 - rate
+    mask = torch.empty((N, D, D, H), dtype=torch.float32, device=device)
+    return mask.bernoulli_(keep, generator=generator).div_(keep)

@@ -22,9 +22,17 @@ Inputs, per atom row n of the blocked layout:
     z:      (N, DI, DK) cos(angle) between in- and out-edge pairs
     a_ids:  (N, DI) int32 source atom of each in-edge, -1 at pad slots
     b_ids:  (N, DK) int32 destination atom of each out-edge, -2 at pad slots
-Returns out (N, DI, HC) float32. Gradients flow to q, k, v, e_atom, w_sbf
-and bias; rbf and z are geometry and get none, as in the reference
-(:719-724, zero cotangents).
+Optional, as the reference's `dropout_mask` and `return_alpha` (:446-472):
+    dropout_mask: (N, DI, DK, H) float32 keep mask pre-scaled by 1/keep
+                  (`ops.attention.pair_dropout_mask`), applied to the
+                  softmax weights after the softmax, the denominator
+                  undropped (:146);
+    return_alpha: also return the pre-dropout weights alpha (N, DI, DK, H),
+                  0 at invalid pairs, differentiable (its cotangent joins
+                  the softmax's).
+Returns out (N, DI, HC) float32, or (out, alpha). Gradients flow to q, k,
+v, e_atom, w_sbf and bias; rbf, z and the mask are geometry and noise and
+get none, as in the reference (:719-724, zero cotangents).
 """
 
 from __future__ import annotations
@@ -90,31 +98,39 @@ def _modulation(rbf, w_sbf, bias, z, num_radial):
 
 
 def blocked_attention_plain(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids,
-                            b_ids, heads: int, num_radial: int):
+                            b_ids, heads: int, num_radial: int,
+                            dropout_mask=None, return_alpha: bool = False):
     """Plain PyTorch version of the forward kernel, mirroring the
-    reference's `_attention_core` (:107-163): it materializes (N, DI, DK,
-    HC) pair tensors and defers the softmax division."""
+    reference's `_attention_core` (:107-163) and `_fwd_kernel` (:166-195):
+    it materializes (N, DI, DK, HC) pair tensors, multiplies the
+    unnormalized weights by the mask after the softmax and defers the
+    division. Returns out, or (out, alpha) with alpha = ex * rnorm before
+    the dropout."""
     N, DI, HC = q.shape
     C = HC // heads
     e = e_atom[:, None, :]
     kk, vv = k + e, v + e
     _, ex, rnorm = _softmax_parts(q, kk, a_ids, b_ids, heads)
     _, s = _modulation(rbf, w_sbf, bias, z, num_radial)
-    ex_rep = ex.repeat_interleave(C, dim=-1)                # (N,DI,DK,HC)
+    ex_used = ex if dropout_mask is None else ex * dropout_mask
+    ex_rep = ex_used.repeat_interleave(C, dim=-1)           # (N,DI,DK,HC)
     out = (vv[:, None, :, :] * s * ex_rep).sum(dim=2)       # (N,DI,HC)
-    return out * rnorm.reshape(N, DI, heads).repeat_interleave(C, dim=-1)
+    out = out * rnorm.reshape(N, DI, heads).repeat_interleave(C, dim=-1)
+    return (out, ex * rnorm) if return_alpha else out
 
 
 def blocked_attention_bwd_plain(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids,
                                 b_ids, g, heads: int, num_radial: int, *,
-                                out):
+                                out, dropout_mask=None, galpha=None):
     """Plain PyTorch version of the backward kernel, step by step as the
     reference's `_bwd_kernel` (:198-279): recompute the softmax, fold
-    rnorm into g, then ds, dv, dalpha, dscores, dq/dk, dG, dW, db, de.
-    inner(i,h) = sum_k alpha dalpha is read, as the kernel reads it, from
-    the forward output: sum_{c in h} g out (`out` as the forward returned
-    it). Returns (dq, dk, dv, de, dW, db) with dW (L*K, HC) the gradient of
-    the un-expanded w_sbf and db (HC,)."""
+    rnorm into g, then ds, dv, dalpha (times the mask, plus the alpha
+    output's cotangent `galpha`: :251-259), dscores, dq/dk, dG, dW, db,
+    de. inner(i,h) = sum_k alpha dalpha is read, as the kernel reads it,
+    from the forward output: sum_{c in h} g out (`out` as the forward
+    returned it, which carries the mask already), plus sum_k alpha galpha.
+    Returns (dq, dk, dv, de, dW, db) with dW (L*K, HC) the gradient of the
+    un-expanded w_sbf and db (HC,)."""
     N, DI, HC = q.shape
     H, K = heads, num_radial
     C = HC // H
@@ -124,14 +140,20 @@ def blocked_attention_bwd_plain(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids,
     valid, ex, rnorm = _softmax_parts(q, kk, a_ids, b_ids, H)
     P, s = _modulation(rbf, w_sbf, bias, z, K)
     alpha = ex * rnorm                                      # (N,DI,DK,H)
-    ex_rep = ex.repeat_interleave(C, dim=-1)                # (N,DI,DK,HC)
+    ex_used = ex if dropout_mask is None else ex * dropout_mask
+    ex_rep = ex_used.repeat_interleave(C, dim=-1)           # (N,DI,DK,HC)
     gn = g * rnorm.reshape(N, DI, H).repeat_interleave(C, dim=-1)
     gn4, g4 = gn[:, :, None, :], g[:, :, None, :]
     v4 = vv[:, None, :, :]
     ds = gn4 * v4 * ex_rep                                  # (N,DI,DK,HC)
     dv = (gn4 * s * ex_rep).sum(dim=1)
     dalpha = (g4 * v4 * s).reshape(*ds.shape[:3], H, C).sum(-1)
+    if dropout_mask is not None:
+        dalpha = dalpha * dropout_mask
     inner = (g * out).reshape(N, DI, 1, H, C).sum(-1)       # (N,DI,1,H)
+    if galpha is not None:
+        dalpha = dalpha + galpha
+        inner = inner + (alpha * galpha).sum(dim=2, keepdim=True)
     dscores = alpha * (dalpha - inner) / float(np.sqrt(C))
     dscores = torch.where(valid[..., None], dscores, 0.0)
     dsc_rep = dscores.repeat_interleave(C, dim=-1)
@@ -146,7 +168,7 @@ def blocked_attention_bwd_plain(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids,
 
 
 def _check(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids, heads,
-           num_radial):
+           num_radial, dropout_mask=None):
     """Raise on inputs the kernels do not take."""
     if q.dim() != 3 or k.dim() != 3:
         raise ValueError(f"q and k must be 3-D, got {tuple(q.shape)}, "
@@ -167,6 +189,9 @@ def _check(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids, heads,
     got = {"q": q, "k": k, "v": v, "e_atom": e_atom, "rbf": rbf,
            "w_sbf": w_sbf, "bias": bias, "z": z, "a_ids": a_ids,
            "b_ids": b_ids}
+    if dropout_mask is not None:
+        want["dropout_mask"] = (N, DI, DK, heads)
+        got["dropout_mask"] = dropout_mask
     device = q.device
     for name, t in got.items():
         if tuple(t.shape) != want[name]:
@@ -198,36 +223,58 @@ def _raise_on(lib, err, name, shape):
         raise RuntimeError(f"{name} launch failed: {msg} ({shape})")
 
 
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+# the kernels' template instances, by (mask, alpha output or cotangent):
+# the launch counters' variant names and the C entry points' variant index
+FWD_VARIANTS = ("plain", "drop", "alpha", "drop+alpha")
+BWD_VARIANTS = ("plain", "drop", "galpha", "drop+galpha")
+
+
+def _variant(names, mask, alpha) -> str:
+    return names[(mask is not None) + 2 * bool(alpha)]
+
+
 def blocked_attention_fwd(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids,
-                          heads: int, num_radial: int) -> torch.Tensor:
+                          heads: int, num_radial: int, dropout_mask=None,
+                          return_alpha: bool = False):
     """The forward: the CUDA kernel on CUDA tensors, laid out by
-    `fwd_plan` (counted in `blocked_attention.launches`, and per (N, DI,
-    DK) in `blocked_attention.by_shape`; `out` from
-    torch.empty, every slot of which the kernel writes), the plain version
-    on CPU tensors."""
+    `fwd_plan` (counted in `blocked_attention.launches`, per (N, DI, DK)
+    in `blocked_attention.by_shape` and per (variant, N, DI, DK) in
+    `blocked_attention.by_variant`, the variant one of FWD_VARIANTS; `out`
+    and `alpha` from torch.empty, every slot of which the kernel writes),
+    the plain version on CPU tensors. Returns out, or (out, alpha)."""
     if q.device.type == "cpu":
         return blocked_attention_plain(q, k, v, e_atom, rbf, w_sbf, bias, z,
-                                       a_ids, b_ids, heads, num_radial)
+                                       a_ids, b_ids, heads, num_radial,
+                                       dropout_mask, return_alpha)
     N, DI, HC = q.shape
     DK = k.shape[1]
     L = rbf.shape[-1] // num_radial
     plan = fwd_plan(N, DI, DK, HC, heads, L, num_radial)
     lib = _library("blocked_attn_fwd")
     out = torch.empty((N, DI, HC), dtype=torch.float32, device=q.device)
+    alpha = (torch.empty((N, DI, DK, heads), dtype=torch.float32,
+                         device=q.device) if return_alpha else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.blocked_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), e_atom.data_ptr(),
             rbf.data_ptr(), w_sbf.data_ptr(), bias.data_ptr(), z.data_ptr(),
-            a_ids.data_ptr(), b_ids.data_ptr(), out.data_ptr(),
+            a_ids.data_ptr(), b_ids.data_ptr(), _ptr(dropout_mask),
+            out.data_ptr(), _ptr(alpha),
             N, DI, DK, heads, HC // heads, L, num_radial, plan.grid,
             plan.threads, plan.warpgroups, plan.i_chunk, plan.smem_bytes,
             stream)
+    variant = _variant(FWD_VARIANTS, dropout_mask, return_alpha)
     _raise_on(lib, err, "blocked_attn_fwd",
-              f"N={N}, DI={DI}, DK={DK}, HC={HC}, L={L}, {plan}")
+              f"{variant}, N={N}, DI={DI}, DK={DK}, HC={HC}, L={L}, {plan}")
     blocked_attention.launches += 1
     blocked_attention.by_shape[(N, DI, DK)] += 1
-    return out
+    blocked_attention.by_variant[(variant, N, DI, DK)] += 1
+    return (out, alpha) if return_alpha else out
 
 
 # Launch plans of both kernels. A CTA is `warpgroups` warpgroups (4, fewer
@@ -331,10 +378,11 @@ def fwd_plan(N: int, DI: int, DK: int, HC: int, heads: int, L: int,
     return _plan("forward", words, N, DI, DK, HC, L, K, threads)
 
 
-def fwd_occupancy(plan: LaunchPlan) -> dict:
-    """What the card gives the forward kernel under `plan` (as
-    `bwd_occupancy`)."""
-    return _occupancy("blocked_attn_fwd", plan)
+def fwd_occupancy(plan: LaunchPlan, variant: str = "plain") -> dict:
+    """What the card gives the forward kernel's instance `variant` (one of
+    FWD_VARIANTS) under `plan` (as `bwd_occupancy`)."""
+    return _occupancy("blocked_attn_fwd", plan,
+                      FWD_VARIANTS.index(variant))
 
 
 def bwd_plan(N: int, DI: int, DK: int, HC: int, heads: int, L: int,
@@ -364,18 +412,21 @@ def bwd_plan(N: int, DI: int, DK: int, HC: int, heads: int, L: int,
     return _plan("backward", words, N, DI, DK, HC, L, K, threads)
 
 
-def bwd_occupancy(plan: LaunchPlan) -> dict:
-    """What the card gives the backward kernel under `plan`: registers and
-    local (spill) bytes per thread, static shared bytes, and resident CTAs
-    and warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    return _occupancy("blocked_attn_bwd", plan)
+def bwd_occupancy(plan: LaunchPlan, variant: str = "plain") -> dict:
+    """What the card gives the backward kernel's instance `variant` (one
+    of BWD_VARIANTS) under `plan`: registers and local (spill) bytes per
+    thread, static shared bytes, and resident CTAs and warps per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    return _occupancy("blocked_attn_bwd", plan,
+                      BWD_VARIANTS.index(variant))
 
 
-def _occupancy(name: str, plan) -> dict:
+def _occupancy(name: str, plan, variant: int) -> dict:
     lib = _library(name)
     info = (ctypes.c_int * 4)()
     block = plan.threads * plan.warpgroups
-    err = getattr(lib, f"{name}_occupancy")(block, plan.smem_bytes, info)
+    err = getattr(lib, f"{name}_occupancy")(block, plan.smem_bytes, variant,
+                                            info)
     _raise_on(lib, err, f"{name}_occupancy", str(plan))
     return {"registers": info[0], "spill_bytes": info[1],
             "static_smem_bytes": info[2], "dynamic_smem_bytes":
@@ -384,19 +435,21 @@ def _occupancy(name: str, plan) -> dict:
 
 
 def blocked_attention_bwd(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids,
-                          g, heads: int, num_radial: int, *, out):
-    """(dq, dk, dv, de, dW, db) from g = d out and the forward output
-    `out`: on CUDA tensors the backward kernel
-    (`blocked_attention_bwd_partials`) and the fixed-order sum of its
-    per-CTA dW/db partials (`reduce_partials`); on CPU tensors the plain
-    version."""
+                          g, heads: int, num_radial: int, *, out,
+                          dropout_mask=None, galpha=None):
+    """(dq, dk, dv, de, dW, db) from g = d out, the forward output `out`,
+    the forward's mask and the cotangent `galpha` of its alpha output
+    (None: no mask, no alpha output or an unused one): on CUDA tensors the
+    backward kernel (`blocked_attention_bwd_partials`) and the fixed-order
+    sum of its per-CTA dW/db partials (`reduce_partials`); on CPU tensors
+    the plain version."""
     if q.device.type == "cpu":
-        return blocked_attention_bwd_plain(q, k, v, e_atom, rbf, w_sbf, bias,
-                                           z, a_ids, b_ids, g, heads,
-                                           num_radial, out=out)
+        return blocked_attention_bwd_plain(
+            q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids, g, heads,
+            num_radial, out=out, dropout_mask=dropout_mask, galpha=galpha)
     dq, dk, dv, de, partial = blocked_attention_bwd_partials(
         q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids, g, heads,
-        num_radial, out=out)
+        num_radial, out=out, dropout_mask=dropout_mask, galpha=galpha)
     LKHC = w_sbf.numel()
     dwdb = reduce_partials(partial)
     return dq, dk, dv, de, dwdb[:LKHC].reshape(w_sbf.shape), dwdb[LKHC:]
@@ -404,24 +457,32 @@ def blocked_attention_bwd(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids,
 
 def blocked_attention_bwd_partials(q, k, v, e_atom, rbf, w_sbf, bias, z,
                                    a_ids, b_ids, g, heads: int,
-                                   num_radial: int, *, out):
+                                   num_radial: int, *, out,
+                                   dropout_mask=None, galpha=None):
     """The backward kernel alone, on CUDA tensors (counted in
-    `blocked_attention_bwd_partials.launches`, and per (N, DI, DK) in its
-    `by_shape`): (dq, dk, dv, de, partial),
+    `blocked_attention_bwd_partials.launches`, per (N, DI, DK) in its
+    `by_shape` and per (variant, N, DI, DK) in its `by_variant`, the
+    variant one of BWD_VARIANTS): (dq, dk, dv, de, partial),
     with partial (bwd_plan(...).grid, (L*K+1)*HC) each CTA's share of dW
     (row-major, L*K x HC) followed by its share of db."""
     if q.device.type != "cuda":
         raise ValueError(f"the backward kernel runs on CUDA tensors, got "
                          f"{q.device}")
-    for name, t in (("g", g), ("out", out)):
-        if t.shape != q.shape or t.dtype != torch.float32 \
-                or t.device != q.device:
-            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on "
-                             f"{t.device} does not match q {tuple(q.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
     N, DI, HC = q.shape
     DK = k.shape[1]
+    pair = (N, DI, DK, heads)
+    for name, t, shape in (("g", g, q.shape), ("out", out, q.shape),
+                           ("dropout_mask", dropout_mask, pair),
+                           ("galpha", galpha, pair)):
+        if t is None and name in ("dropout_mask", "galpha"):
+            continue
+        if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 \
+                or t.device != q.device:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device} is not {tuple(shape)} float32 on "
+                             f"{q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
     K = num_radial
     L = rbf.shape[-1] // K
     plan = bwd_plan(N, DI, DK, HC, heads, L, K)
@@ -437,15 +498,18 @@ def blocked_attention_bwd_partials(q, k, v, e_atom, rbf, w_sbf, bias, z,
         err = lib.blocked_attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), e_atom.data_ptr(),
             rbf.data_ptr(), w_sbf.data_ptr(), bias.data_ptr(), z.data_ptr(),
-            a_ids.data_ptr(), b_ids.data_ptr(), out.data_ptr(), g.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), de.data_ptr(),
-            partial.data_ptr(), N, DI, DK, heads, HC // heads, L, K,
-            plan.grid, plan.threads, plan.warpgroups, plan.i_chunk,
-            plan.smem_bytes, stream)
+            a_ids.data_ptr(), b_ids.data_ptr(), _ptr(dropout_mask),
+            out.data_ptr(), g.data_ptr(), _ptr(galpha), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), de.data_ptr(), partial.data_ptr(),
+            N, DI, DK, heads, HC // heads, L, K, plan.grid, plan.threads,
+            plan.warpgroups, plan.i_chunk, plan.smem_bytes, stream)
+    variant = _variant(BWD_VARIANTS, dropout_mask, galpha is not None)
     _raise_on(lib, err, "blocked_attn_bwd",
-              f"N={N}, DI={DI}, DK={DK}, HC={HC}, L={L}, K={K}, {plan}")
+              f"{variant}, N={N}, DI={DI}, DK={DK}, HC={HC}, L={L}, K={K}, "
+              f"{plan}")
     blocked_attention_bwd_partials.launches += 1
     blocked_attention_bwd_partials.by_shape[(N, DI, DK)] += 1
+    blocked_attention_bwd_partials.by_variant[(variant, N, DI, DK)] += 1
     return dq, dk, dv, de, partial
 
 
@@ -477,49 +541,65 @@ def reduce_partials(partial: torch.Tensor) -> torch.Tensor:
 
 
 class _BlockedAttention(torch.autograd.Function):
-    """Saves the inputs and the forward output; the backward recomputes the
-    softmax from the inputs and reads inner(i,h) = sum_{c in h} g out from
-    the output (the reference's custom VJP recomputes the output instead,
-    to spare TPU memory: :235)."""
+    """Saves the inputs, the mask and the forward output; the backward
+    recomputes the softmax from the inputs and reads inner(i,h) =
+    sum_{c in h} g out from the output (the reference's custom VJP
+    recomputes the output instead, to spare TPU memory: :235). An unused
+    output's cotangent arrives as None (the reference's `_zero_ct`,
+    :633-639): no alpha cotangent runs the kernel without one, no `out`
+    cotangent a zero g."""
 
     @staticmethod
     def forward(ctx, q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids,
-                heads, num_radial):
-        out = blocked_attention_fwd(q, k, v, e_atom, rbf, w_sbf, bias, z,
-                                    a_ids, b_ids, heads, num_radial)
+                dropout_mask, heads, num_radial, return_alpha):
+        res = blocked_attention_fwd(q, k, v, e_atom, rbf, w_sbf, bias, z,
+                                    a_ids, b_ids, heads, num_radial,
+                                    dropout_mask, return_alpha)
+        out = res[0] if return_alpha else res
         ctx.save_for_backward(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids,
-                              b_ids, out)
+                              b_ids, dropout_mask, out)
         ctx.heads, ctx.num_radial = heads, num_radial
-        return out
+        ctx.set_materialize_grads(False)
+        return res
 
     @staticmethod
-    def backward(ctx, g):
-        *inputs, out = ctx.saved_tensors
+    def backward(ctx, g, galpha=None):
+        *inputs, mask, out = ctx.saved_tensors
+        g = torch.zeros_like(out) if g is None else g.contiguous()
+        if galpha is not None:
+            galpha = galpha.contiguous()
         dq, dk, dv, de, dw, db = blocked_attention_bwd(
-            *inputs, g.contiguous(), ctx.heads, ctx.num_radial, out=out)
-        # rbf, z (geometry), the ids, heads and num_radial get none
-        return dq, dk, dv, de, None, dw, db, None, None, None, None, None
+            *inputs, g, ctx.heads, ctx.num_radial, out=out,
+            dropout_mask=mask, galpha=galpha)
+        # rbf, z (geometry), the ids, the mask, heads, num_radial and
+        # return_alpha get none
+        return (dq, dk, dv, de, None, dw, db, None, None, None, None, None,
+                None, None)
 
 
 def blocked_attention(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids,
-                      heads: int, num_radial: int) -> torch.Tensor:
+                      heads: int, num_radial: int, dropout_mask=None,
+                      return_alpha: bool = False):
     """Fused blocked attention, differentiable in q, k, v, e_atom, w_sbf
-    and bias. CUDA tensors run the CUDA kernels, CPU tensors the plain
-    versions; a CUDA launch that fails raises, nothing falls back."""
+    and bias (and through alpha, with `return_alpha`). CUDA tensors run the
+    CUDA kernels, CPU tensors the plain versions; a CUDA launch that fails
+    raises, nothing falls back. Returns out, or (out, alpha)."""
     _check(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids, heads,
-           num_radial)
+           num_radial, dropout_mask)
     return _BlockedAttention.apply(q, k, v, e_atom, rbf, w_sbf, bias, z,
-                                   a_ids, b_ids, heads, num_radial)
+                                   a_ids, b_ids, dropout_mask, heads,
+                                   num_radial, bool(return_alpha))
 
 
 def reset_launch_counts() -> None:
     """Set the three kernel launch counts, and the forward's and the
-    backward's counts per shape, to 0."""
+    backward's counts per shape and per variant, to 0."""
     blocked_attention.launches = 0
     blocked_attention_bwd_partials.launches = 0
     reduce_partials.launches = 0
-    blocked_attention.by_shape = collections.Counter()
-    blocked_attention_bwd_partials.by_shape = collections.Counter()
+    for fn in (blocked_attention, blocked_attention_bwd_partials):
+        fn.by_shape = collections.Counter()
+        fn.by_variant = collections.Counter()
 
 
 reset_launch_counts()
@@ -531,15 +611,15 @@ def _library(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "blocked_attn_fwd":
-        lib.blocked_attn_fwd.argtypes = [ptr] * 11 + [i32] * 12 + [ptr]
+        lib.blocked_attn_fwd.argtypes = [ptr] * 13 + [i32] * 12 + [ptr]
         lib.blocked_attn_fwd.restype = i32
-        lib.blocked_attn_fwd_occupancy.argtypes = [i32, i32, ptr]
+        lib.blocked_attn_fwd_occupancy.argtypes = [i32, i32, i32, ptr]
         lib.blocked_attn_fwd_occupancy.restype = i32
         lib.blocked_attn_error_string = lib.blocked_attn_fwd_error_string
     else:
-        lib.blocked_attn_bwd.argtypes = [ptr] * 17 + [i32] * 12 + [ptr]
+        lib.blocked_attn_bwd.argtypes = [ptr] * 19 + [i32] * 12 + [ptr]
         lib.blocked_attn_bwd.restype = i32
-        lib.blocked_attn_bwd_occupancy.argtypes = [i32, i32, ptr]
+        lib.blocked_attn_bwd_occupancy.argtypes = [i32, i32, i32, ptr]
         lib.blocked_attn_bwd_occupancy.restype = i32
         lib.blocked_attn_bwd_reduce.argtypes = [ptr, ptr, i32, i32, ptr]
         lib.blocked_attn_bwd_reduce.restype = i32

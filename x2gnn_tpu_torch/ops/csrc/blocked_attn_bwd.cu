@@ -3,20 +3,28 @@
 // Replaces the two Pallas backward kernels of
 // x2gnn_tpu/ops/pallas/blocked_attn.py: `_bwd_kernel` (:198) and
 // `_bwd_kernel_ichunk` (:346), which computes the same function with the
-// query axis tiled for the TPU's 16 MB VMEM. One kernel covers both: any
-// DI, DK <= 64, HC = H*C with C dividing 32 (HC a multiple of 32 up to
-// 1024), L <= kMaxL and any K whose W and rbf rows fit shared memory.
+// query axis tiled for the TPU's 16 MB VMEM, with their two static
+// branches: HAS_DROP (the forward's keep mask, :254-255, :423-424) and
+// WANT_ALPHA (the cotangent galpha of the forward's alpha output,
+// :256-257, :425-426). One kernel covers both: any DI, DK <= 64, HC = H*C
+// with C dividing 32 (HC a multiple of 32 up to 1024), L <= kMaxL and any
+// K whose W and rbf rows fit shared memory. The branches are template
+// flags, four instances (drop, galpha) in {0,1}^2, so the instance without
+// them is the kernel measured below.
 //
 // Forward (blocked_attn_fwd.cu), per atom n, with kk = k + e, vv = v + e:
 //   alpha(i,k,h) = softmax_k over valid pairs of q[i].kk[k] / sqrt(C)
 //   s(i,k,:)     = bias + sum_l pref_l P_l(z[i,k]) G[k,l,:]
 //   G[k,l,:]     = sum_n rbf[k, l*K+n] W[l*K+n, :]
 //   out[i,:]     = sum_k alpha(i,k,h) vv[k,:] s(i,k,:)
-// Backward from g = d out (N, DI, HC) and the saved forward output:
-//   ds(i,k,c)     = g vv alpha
-//   dv[k,c]       = sum_i g s alpha
-//   dalpha(i,k,h) = sum_{c in h} g vv s
-//   inner(i,h)    = sum_k alpha dalpha = sum_{c in h} g(i,c) out(i,c)
+// With the mask, out[i,:] = sum_k alpha drop vv s; the alpha output is
+// the undropped alpha. Backward from g = d out (N, DI, HC), galpha = d
+// alpha (0 without it) and the saved forward output:
+//   ds(i,k,c)     = g vv alpha drop
+//   dv[k,c]       = sum_i g s alpha drop
+//   dalpha(i,k,h) = drop sum_{c in h} g vv s + galpha
+//   inner(i,h)    = sum_k alpha dalpha
+//                 = sum_{c in h} g(i,c) out(i,c) + sum_k alpha galpha
 //   dscore        = alpha (dalpha - inner) / sqrt(C), 0 at invalid pairs
 //   dq[i] = sum_k dscore kk[k],  dk[k] = sum_i dscore q[i]
 //   de    = sum_k (dk + dv)                     (e is added to k and v)
@@ -78,6 +86,14 @@
 // - The reduce reads 16 bytes per load, four independent accumulators per
 //   thread over 32 row lanes, in 8-column CTAs: 172 CTAs for HC=128,
 //   L*K=42.
+// - The mask and galpha: the gradient pass reads the pair's mask
+//   value and galpha at its uncompacted (i, k) slot, one 4-byte load each
+//   per (query, key) step that the head's C lanes share; the softmax's
+//   thread per (query, head) adds sum_k alpha galpha over the valid pairs
+//   to inner. Shared memory and the launch plan are unchanged. Each adds
+//   4 B per valid pair and head to the bound, and a few operations per
+//   pair and head; measured beside the instance without them by
+//   chip_smoke.py (phase 9a; PERF.md section 6).
 // Measured by chip_smoke.py on "NVIDIA H100 80GB HBM3, 700.00 W": 0.2676
 // ms per launch at N=760, D=32 (16.9x its 0.0158 ms bound; the first
 // design 1.5930) and 0.4801 ms at N=328, D=48 (37.0x its 0.0130 ms bound,
@@ -171,6 +187,11 @@ __host__ __device__ inline Layout make_layout(int DI, int DK, int TB, int WG,
   return s;
 }
 
+// DROP and GALPHA are the reference's HAS_DROP and WANT_ALPHA (:198-259):
+// the forward's keep mask, and the cotangent of its alpha output. Without
+// them the instance is the kernel measured below, its registers and
+// occupancy unchanged.
+template <bool DROP, bool GALPHA>
 __global__ void __launch_bounds__(kGroupThreads * kMaxWarpgroups, 1)
 blocked_attn_bwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
@@ -178,7 +199,8 @@ blocked_attn_bwd_kernel(
     const float* __restrict__ rbf, const float* __restrict__ w,
     const float* __restrict__ bias, const float* __restrict__ z,
     const int* __restrict__ a_ids, const int* __restrict__ b_ids,
-    const float* __restrict__ out, const float* __restrict__ g,
+    const float* __restrict__ drop, const float* __restrict__ out,
+    const float* __restrict__ g, const float* __restrict__ galpha,
     float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
     float* __restrict__ de, float* __restrict__ partial, int N, int DI,
     int DK, int HC, int TB, int C, int L, int K, int IC, float rsc) {
@@ -210,6 +232,8 @@ blocked_attn_bwd_kernel(
   const int c = lt - hb * C;
   const int lane = tid & 31;
   const int LK = L * K;
+  const int H = HC / C;                     // heads of the pair arrays
+  const int hg = blockIdx.y * Hb + hb;      // this thread's head
   float* dq_w = smem + lay.dq + static_cast<size_t>(wg) * IC * TB;
   const float bv = bias[hc];
   if (tid < L) {
@@ -349,10 +373,14 @@ blocked_attn_bwd_kernel(
         }
       }
       __syncthreads();
-      // ---- softmax per (query, head): each exp once; alpha in place ----
+      // ---- softmax per (query, head): each exp once; alpha in place.
+      // GALPHA adds sum_k alpha galpha to inner (the alpha output's share
+      // of sum_k alpha dalpha), galpha read at the valid pairs' uncompacted
+      // (i, k) slots ----
       for (int t = tid; t < icnt * Hb; t += NT) {
         const int ii = t / Hb;
-        float* row = al_s + ii * DK * Hb + (t - ii * Hb);
+        const int h = t - ii * Hb;
+        float* row = al_s + ii * DK * Hb + h;
         float m = kNeg / 2;
         for (int jj = 0; jj < nK; ++jj) m = fmaxf(m, row[jj * Hb]);
         float l = 0.f;
@@ -362,7 +390,20 @@ blocked_attn_bwd_kernel(
           l += ex;
         }
         const float rl = 1.f / fmaxf(l, 1e-16f);
-        for (int jj = 0; jj < nK; ++jj) row[jj * Hb] *= rl;
+        float ag = 0.f;
+        const size_t prow =
+            (static_cast<size_t>(n) * DI + qidx[i0 + ii]) * DK;
+        for (int jj = 0; jj < nK; ++jj) {
+          const float a = row[jj * Hb] * rl;
+          row[jj * Hb] = a;
+          if constexpr (GALPHA) {
+            if (kb[jj] != qa[i0 + ii]) {
+              ag = fmaf(a, galpha[(prow + kidx[jj]) * H + blockIdx.y * Hb
+                                  + h], ag);
+            }
+          }
+        }
+        if constexpr (GALPHA) inner_s[ii * Hb + h] += ag;
       }
       __syncthreads();
       // ---- key-outer gradients, the keys split over warpgroups: G_k,
@@ -407,8 +448,22 @@ blocked_attn_bwd_kernel(
           dG[l] = 0.f;
         }
         float dk_acc = 0.f, dv_acc = 0.f;
+        // the pair (i, k, h) at ((n * DI + i) * DK + k) * H + hg
+        const size_t kcol = static_cast<size_t>(kidx[jj]) * H + hg;
         for (int ii = 0; ii < icnt; ++ii) {
           const float alpha = al_s[(ii * DK + jj) * Hb + hb];
+          // the message's weight alpha * drop, the mask and the alpha
+          // cotangent of the pair (1 and 0 without them)
+          float am = alpha, dr = 1.f, ga = 0.f;
+          if constexpr (DROP || GALPHA) {
+            const size_t at =
+                (static_cast<size_t>(n) * DI + qidx[i0 + ii]) * DK * H + kcol;
+            if constexpr (DROP) {
+              dr = drop[at];
+              am = alpha * dr;
+            }
+            if constexpr (GALPHA) ga = galpha[at];
+          }
           // pref_l P_l of the pair, two 16-byte loads
           const float4* pp =
               reinterpret_cast<const float4*>(p_s + (ii * DK + jj) * kMaxL);
@@ -422,9 +477,11 @@ blocked_attn_bwd_kernel(
           }
           const float gi = g_s[ii * TB + lt];
           const float qi = q_s[ii * TB + lt];
-          const float ds = gi * vj * alpha;
-          dv_acc = fmaf(gi * s, alpha, dv_acc);
-          const float dalpha = head_sum(gi * vj * s, C);
+          const float ds = gi * vj * am;
+          dv_acc = fmaf(gi * s, am, dv_acc);
+          float dalpha = head_sum(gi * vj * s, C);
+          if constexpr (DROP) dalpha *= dr;      // :254-255
+          if constexpr (GALPHA) dalpha += ga;    // :256-257
           const float dsc = alpha * (dalpha - inner_s[ii * Hb + hb]) * rsc;
           dq_w[ii * TB + lt] = fmaf(dsc, kj, dq_w[ii * TB + lt]);
           dk_acc = fmaf(dsc, qi, dk_acc);
@@ -601,6 +658,18 @@ bool plan_ok(int N, int DI, int DK, int HC, int C, int L, int K, int grid,
   return smem_bytes == static_cast<int>(lay.bytes) && smem_bytes <= kMaxSmem;
 }
 
+using BwdKernel = decltype(&blocked_attn_bwd_kernel<false, false>);
+
+// the instance of variant 0..3: (drop, galpha) = (0,0), (1,0), (0,1), (1,1)
+BwdKernel bwd_instance(int variant) {
+  switch (variant) {
+    case 1: return blocked_attn_bwd_kernel<true, false>;
+    case 2: return blocked_attn_bwd_kernel<false, true>;
+    case 3: return blocked_attn_bwd_kernel<true, true>;
+    default: return blocked_attn_bwd_kernel<false, false>;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -610,48 +679,56 @@ extern "C" {
 // take. All pointers are device pointers to contiguous arrays:
 // q/out/g/dq (N,DI,HC), k/v/dk/dv (N,DK,HC), e/de (N,HC), rbf (N,DK,L*K),
 // w (L*K,HC), bias (HC), z (N,DI,DK), a_ids (N,DI) int32, b_ids (N,DK)
-// int32, partial (grid, L*K+1, HC): per CTA, its dW rows then its db row.
-// The plan (grid, threads, warpgroups, i_chunk, smem_bytes) is
-// ops/blocked_attn.py's bwd_plan for the shape.
+// int32, partial (grid, L*K+1, HC): per CTA, its dW rows then its db row;
+// drop (N,DI,DK,H), the forward's keep mask pre-scaled by 1/keep, and
+// galpha (N,DI,DK,H), the cotangent of its alpha output, are nullable: a
+// null one leaves its branch out (its own instance). The plan (grid,
+// threads, warpgroups, i_chunk, smem_bytes) is ops/blocked_attn.py's
+// bwd_plan for the shape.
 int blocked_attn_bwd(const float* q, const float* k, const float* v,
                      const float* e, const float* rbf, const float* w,
                      const float* bias, const float* z, const int* a_ids,
-                     const int* b_ids, const float* out, const float* g,
-                     float* dq, float* dk, float* dv, float* de,
-                     float* partial, int N, int DI, int DK, int H, int C,
-                     int L, int K, int grid, int threads, int warpgroups,
-                     int i_chunk, int smem_bytes, void* stream) {
+                     const int* b_ids, const float* drop, const float* out,
+                     const float* g, const float* galpha, float* dq,
+                     float* dk, float* dv, float* de, float* partial, int N,
+                     int DI, int DK, int H, int C, int L, int K, int grid,
+                     int threads, int warpgroups, int i_chunk,
+                     int smem_bytes, void* stream) {
   const int HC = H * C;
   if (!plan_ok(N, DI, DK, HC, C, L, K, grid, threads, warpgroups, i_chunk,
                smem_bytes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const BwdKernel kern =
+      bwd_instance((drop != nullptr) + 2 * (galpha != nullptr));
   cudaError_t err = cudaFuncSetAttribute(
-      blocked_attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  blocked_attn_bwd_kernel<<<dim3(grid, HC / threads), threads * warpgroups, smem_bytes,
+  kern<<<dim3(grid, HC / threads), threads * warpgroups, smem_bytes,
          static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, e, rbf, w, bias, z, a_ids, b_ids, out, g, dq, dk, dv, de,
-      partial, N, DI, DK, HC, threads, C, L, K, i_chunk,
+      q, k, v, e, rbf, w, bias, z, a_ids, b_ids, drop, out, g, galpha, dq,
+      dk, dv, de, partial, N, DI, DK, HC, threads, C, L, K, i_chunk,
       static_cast<float>(1.0 / sqrt(static_cast<double>(C))));
   return static_cast<int>(cudaGetLastError());
 }
 
 // info[0..3] = registers per thread, local (spill) bytes per thread, static
-// shared bytes, and resident CTAs per SM of the gradient kernel at
-// `threads` threads and `smem_bytes` of dynamic shared memory.
-int blocked_attn_bwd_occupancy(int threads, int smem_bytes, int* info) {
+// shared bytes, and resident CTAs per SM of the gradient kernel's instance
+// `variant` (0..3, as bwd_instance) at `threads` threads and `smem_bytes`
+// of dynamic shared memory.
+int blocked_attn_bwd_occupancy(int threads, int smem_bytes, int variant,
+                               int* info) {
+  const BwdKernel kern = bwd_instance(variant);
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, blocked_attn_bwd_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&attr, kern);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(blocked_attn_bwd_kernel,
+  err = cudaFuncSetAttribute(kern,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, blocked_attn_bwd_kernel, threads, smem_bytes);
+      &blocks, kern, threads, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   info[0] = attr.numRegs;
   info[1] = static_cast<int>(attr.localSizeBytes);

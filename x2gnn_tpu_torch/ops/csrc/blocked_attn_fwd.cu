@@ -3,10 +3,14 @@
 // Replaces the two Pallas forward kernels of
 // x2gnn_tpu/ops/pallas/blocked_attn.py: `_fwd_kernel` (:166, math in
 // `_attention_core` :107) and `_fwd_kernel_ichunk` (:282), which computes
-// the same function with the query axis tiled for the TPU's 16 MB VMEM.
+// the same function with the query axis tiled for the TPU's 16 MB VMEM,
+// with their two static branches: HAS_DROP (a keep mask, :146, :166-195)
+// and WANT_ALPHA (the pre-dropout weights as a second output, :194-195).
 // One kernel covers both: any DI, DK <= 64, HC = H*C with C dividing 32
 // (HC a multiple of 32 up to 1024), L <= kMaxL and any K whose W and rbf
-// rows fit shared memory.
+// rows fit shared memory. The branches are template flags, four instances
+// (drop, alpha) in {0,1}^2, so the instance without them is the kernel
+// measured below.
 //
 // For one atom n (out-edges k of the atom, in-edges i):
 //   kk = k + e, vv = v + e                                  (per channel)
@@ -15,8 +19,11 @@
 //   m(i,h) = max(max_k valid score, -5e29); ex = exp(score - m), 0 if invalid
 //   G[k,l,:] = sum_n rbf[k, l*K+n] W[l*K+n, :]               (W un-expanded)
 //   s(i,k,:) = bias + sum_l pref_l P_l(z[i,k]) G[k,l,:]
-//   out[i,:] = sum_k vv[k,:] s(i,k,:) ex(i,k,h) / max(sum_k ex(i,k,h), 1e-16)
-// Fully masked rows (pad atoms, pad slots, degree-0/1 atoms) give exactly 0.
+//   out[i,:] = sum_k vv[k,:] s(i,k,:) ex(i,k,h) drop(i,k,h)
+//              / max(sum_k ex(i,k,h), 1e-16)        (drop = 1 without it)
+//   alpha(i,k,h) = ex(i,k,h) / max(sum_k ex(i,k,h), 1e-16)   (if asked)
+// Fully masked rows (pad atoms, pad slots, degree-0/1 atoms) give exactly 0,
+// in out and in alpha.
 //
 // Two devices of the TPU kernel exist only for its 128x128 matrix unit and
 // are dropped: the head-indicator matmuls (the per-head sum over C
@@ -122,10 +129,25 @@
 // of atoms over CTAs leaves the busiest CTA with 1.9x the mean valid pairs
 // at N=1024, D=24 and 3.3x at N=512, D=48 (chip_smoke.py prints both).
 //
+// The mask and the alpha output. Both are applied by the softmax's
+// thread per (query, head), once per pair and head: without alpha, it
+// stores each valid pair's ex * drop in place of ex as it sums the
+// undropped exps; with alpha, a second pass after the sum writes alpha =
+// ex * rl for every compacted pair of the chunk, then the dropped ex (the
+// output pass reads the dropped weights and is unchanged). The mask is read only at
+// valid pairs, at their uncompacted (i, k) slot; alpha's pairs with a pad
+// slot, and every pair of an atom without a valid one, get their zeros
+// from a pass over the atom's window before the softmax. So the mask adds
+// 4 B per valid pair and head to the bound (the float mask, as the
+// reference streams it) and alpha its whole (N, DI, DK, H) float32 store,
+// paid only when asked; the operations grow by one multiply per valid pair
+// and head for each. Measured beside the instance without them by
+// chip_smoke.py (phase 9a; PERF.md section 6).
+//
 // Not in this design: tensor cores (each head's q.k is 8 deep and G is a
 // 42-deep product; float32 parity would need 3xTF32 for a latency-bound
-// kernel), bf16 storage, the dropout mask and the alpha output, and
-// handing the softmax statistics to the backward.
+// kernel), bf16 storage, and handing the softmax statistics to the
+// backward.
 
 #include <cuda_runtime.h>
 
@@ -188,7 +210,8 @@ __host__ __device__ inline Layout make_layout(int DI, int DK, int TB, int WG,
   s.kidx = off;  off += up4(DK);     // compacted valid key slots
   s.kb = off;    off += up4(DK);     // and their destination atoms
   s.pref = off;  off += kMaxL;
-  s.cnt = off;   off += 8;   // nI, nK, query mask (2 words), any valid pair
+  // nI, nK, query mask (2 words), any valid pair, key mask (2 words)
+  s.cnt = off;   off += 8;
   s.w = off;     off += LK * TB;     // the group's W columns, per CTA
   // the atom's valid keys' rbf rows, each order's K values padded to Kp
   s.rbf = off;   off += static_cast<size_t>(DK) * L * up4(K);
@@ -207,11 +230,18 @@ __host__ __device__ inline Layout make_layout(int DI, int DK, int TB, int WG,
 // registers) with each valid key's k + e slice, in channel order, then the
 // max over the keys (floored at kNeg / 2) and the exps and their sum, each
 // exp once, stored in place of the score; rl = 1 / max(sum, 1e-16).
-template <int CC>
+// ALPHA writes alpha = ex * rl of every compacted pair (the reference's
+// pre-dropout alpha output, :194-195); DROP then multiplies each valid
+// pair's ex by its mask value, after the sum (the denominator stays
+// undropped, :146), so the output pass reads the dropped weights. Both
+// read and write at the pair's uncompacted (i, k) slot.
+template <int CC, bool DROP, bool ALPHA>
 __device__ __forceinline__ void scores_softmax(
-    const float* q_s, const float* kk_s, const int* qa, const int* kb,
-    float* ex_s, float* rl_s, int i0, int icnt, int nK, int DK, int TB,
-    float rsc) {
+    const float* q_s, const float* kk_s, const int* qidx, const int* qa,
+    const int* kidx, const int* kb, float* ex_s, float* rl_s, int i0,
+    int icnt, int nK, int DK, int TB, float rsc,
+    const float* __restrict__ drop, float* __restrict__ alpha, size_t row0,
+    int H, int hg0) {
   const int Hb = TB / CC;
   for (int t = threadIdx.x; t < icnt * Hb; t += blockDim.x) {
     const int ii = t / Hb;
@@ -244,16 +274,45 @@ __device__ __forceinline__ void scores_softmax(
       row[jj * Hb] = sc;
       m = fmaxf(m, sc);
     }
+    // the pair (n, i, k, h) at ((row0 + i) * DK + k) * H + hg0 + h
+    const size_t prow = (row0 + qidx[i0 + ii]) * DK;
+    const size_t hcol = hg0 + h;
     float l = 0.f;
-    for (int jj = 0; jj < nK; ++jj) {
-      const float ex = expf(row[jj * Hb] - m);   // 0 at invalid pairs
-      row[jj * Hb] = ex;
-      l += ex;
+    if constexpr (DROP && !ALPHA) {   // the sum stays undropped
+#pragma unroll 4
+      for (int jj = 0; jj < nK; ++jj) {
+        const float ex = expf(row[jj * Hb] - m);   // 0 at invalid pairs
+        l += ex;
+        row[jj * Hb] = kb[jj] != ai
+            ? ex * drop[(prow + kidx[jj]) * H + hcol] : ex;
+      }
+    } else {
+      for (int jj = 0; jj < nK; ++jj) {
+        const float ex = expf(row[jj * Hb] - m);   // 0 at invalid pairs
+        row[jj * Hb] = ex;
+        l += ex;
+      }
     }
-    rl_s[ii * Hb + h] = 1.f / fmaxf(l, 1e-16f);
+    const float rl = 1.f / fmaxf(l, 1e-16f);
+    rl_s[ii * Hb + h] = rl;
+    if constexpr (ALPHA) {   // alpha needs the sum first, then the mask
+#pragma unroll 4
+      for (int jj = 0; jj < nK; ++jj) {
+        const size_t at = (prow + kidx[jj]) * H + hcol;
+        const float ex = row[jj * Hb];
+        alpha[at] = ex * rl;
+        if constexpr (DROP) {
+          if (kb[jj] != ai) row[jj * Hb] = ex * drop[at];
+        }
+      }
+    }
   }
 }
 
+// DROP and ALPHA are the reference's HAS_DROP and WANT_ALPHA (:166-195):
+// without them the instance is the kernel measured above, its registers
+// and its occupancy unchanged.
+template <bool DROP, bool ALPHA>
 __global__ void __launch_bounds__(kGroupThreads * kMaxWarpgroups, 1)
 blocked_attn_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
@@ -261,7 +320,8 @@ blocked_attn_fwd_kernel(
     const float* __restrict__ rbf, const float* __restrict__ w,
     const float* __restrict__ bias, const float* __restrict__ z,
     const int* __restrict__ a_ids, const int* __restrict__ b_ids,
-    float* __restrict__ out, int N, int DI, int DK, int HC, int TB, int C,
+    const float* __restrict__ drop, float* __restrict__ out,
+    float* __restrict__ alpha, int N, int DI, int DK, int HC, int TB, int C,
     int L, int K, int IC, float rsc) {
   extern __shared__ __align__(16) float smem[];
   const int NT = blockDim.x;                // WG warpgroups of TB threads
@@ -338,7 +398,10 @@ blocked_attn_fwd_kernel(
           kb[slot] = b;
         }
         cntK += __popc(mk);
-        if (lane == 0) cnt[2 + u] = mi;
+        if (lane == 0) {
+          cnt[2 + u] = mi;
+          cnt[5 + u] = mk;
+        }
       }
       load_ids(n + gridDim.x);
       __syncwarp();
@@ -363,6 +426,22 @@ blocked_attn_fwd_kernel(
     for (int i = wg; i < DI; i += WG) {
       if (!any || !((cnt[2 + (i >> 5)] >> (i & 31)) & 1u)) {
         out[(static_cast<size_t>(n) * DI + i) * HC + hc] = 0.f;
+      }
+    }
+    if constexpr (ALPHA) {
+      // alpha 0 at every pair of the group's heads with a pad slot (every
+      // pair if none is valid); the softmax writes the others
+      const int Hg = HC / C;
+      const int per_i = DK * Hb;
+      for (int t = tid; t < DI * per_i; t += NT) {
+        const int i = t / per_i;
+        const int kk = (t - i * per_i) / Hb;
+        const int h = t - i * per_i - kk * Hb;
+        if (!any || !((cnt[2 + (i >> 5)] >> (i & 31)) & 1u) ||
+            !((cnt[5 + (kk >> 5)] >> (kk & 31)) & 1u)) {
+          alpha[((static_cast<size_t>(n) * DI + i) * DK + kk) * Hg +
+                blockIdx.y * Hb + h] = 0.f;
+        }
       }
     }
     if (!any) continue;   // uniform over the CTA
@@ -422,20 +501,20 @@ blocked_attn_fwd_kernel(
       }
       __syncthreads();   // rows staged by other warpgroups
       // ---- scores and softmax, one thread per (query, head) ----
+#define SCORES(CC)                                                      \
+  scores_softmax<CC, DROP, ALPHA>(q_s, kk_s, qidx, qa, kidx, kb, ex_s,  \
+                                  rl_s, i0, icnt, nK, DK, TB, rsc, drop, \
+                                  alpha, static_cast<size_t>(n) * DI,    \
+                                  HC / C, blockIdx.y * Hb)
       switch (C) {
-        case 1: scores_softmax<1>(q_s, kk_s, qa, kb, ex_s, rl_s, i0, icnt,
-                                  nK, DK, TB, rsc); break;
-        case 2: scores_softmax<2>(q_s, kk_s, qa, kb, ex_s, rl_s, i0, icnt,
-                                  nK, DK, TB, rsc); break;
-        case 4: scores_softmax<4>(q_s, kk_s, qa, kb, ex_s, rl_s, i0, icnt,
-                                  nK, DK, TB, rsc); break;
-        case 8: scores_softmax<8>(q_s, kk_s, qa, kb, ex_s, rl_s, i0, icnt,
-                                  nK, DK, TB, rsc); break;
-        case 16: scores_softmax<16>(q_s, kk_s, qa, kb, ex_s, rl_s, i0, icnt,
-                                    nK, DK, TB, rsc); break;
-        default: scores_softmax<32>(q_s, kk_s, qa, kb, ex_s, rl_s, i0, icnt,
-                                    nK, DK, TB, rsc); break;
+        case 1: SCORES(1); break;
+        case 2: SCORES(2); break;
+        case 4: SCORES(4); break;
+        case 8: SCORES(8); break;
+        case 16: SCORES(16); break;
+        default: SCORES(32); break;
       }
+#undef SCORES
       __syncthreads();
       // ---- output pass: the warpgroup's keys in tiles of kKeyTile, G and
       // vv of the tile in registers (each W value loaded once per tile),
@@ -513,7 +592,7 @@ blocked_attn_fwd_kernel(
               for (int l = 0; l < kMaxL; ++l) {
                 if (l < L) s = fmaf(P[l], G[u][l], s);
               }
-              a = fmaf(vj[u] * s, ex, a);
+              a = fmaf(vj[u] * s, ex, a);   // ex carries the mask
             }
           }
           acc_w[ii * TB + lt] = a;
@@ -555,6 +634,18 @@ bool plan_ok(int N, int DI, int DK, int HC, int C, int L, int K, int grid,
   return smem_bytes == static_cast<int>(lay.bytes) && smem_bytes <= kMaxSmem;
 }
 
+using FwdKernel = decltype(&blocked_attn_fwd_kernel<false, false>);
+
+// the instance of variant 0..3: (drop, alpha) = (0,0), (1,0), (0,1), (1,1)
+FwdKernel fwd_instance(int variant) {
+  switch (variant) {
+    case 1: return blocked_attn_fwd_kernel<true, false>;
+    case 2: return blocked_attn_fwd_kernel<false, true>;
+    case 3: return blocked_attn_fwd_kernel<true, true>;
+    default: return blocked_attn_fwd_kernel<false, false>;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -564,45 +655,53 @@ extern "C" {
 // take. All pointers are device pointers to contiguous arrays:
 // q (N,DI,HC), k/v (N,DK,HC), e (N,HC), rbf (N,DK,L*K), w (L*K,HC),
 // bias (HC), z (N,DI,DK), a_ids (N,DI) int32, b_ids (N,DK) int32,
-// out (N,DI,HC). The plan (grid, threads, warpgroups, i_chunk,
-// smem_bytes) is ops/blocked_attn.py's fwd_plan for the shape.
+// out (N,DI,HC); drop (N,DI,DK,H), the keep mask pre-scaled by 1/keep,
+// and alpha (N,DI,DK,H), the pre-dropout weights written whole, are
+// nullable: a null one leaves its branch out (its own instance). The plan
+// (grid, threads, warpgroups, i_chunk, smem_bytes) is
+// ops/blocked_attn.py's fwd_plan for the shape.
 int blocked_attn_fwd(const float* q, const float* k, const float* v,
                      const float* e, const float* rbf, const float* w,
                      const float* bias, const float* z, const int* a_ids,
-                     const int* b_ids, float* out, int N, int DI, int DK,
-                     int H, int C, int L, int K, int grid, int threads,
-                     int warpgroups, int i_chunk, int smem_bytes,
-                     void* stream) {
+                     const int* b_ids, const float* drop, float* out,
+                     float* alpha, int N, int DI, int DK, int H, int C, int L,
+                     int K, int grid, int threads, int warpgroups,
+                     int i_chunk, int smem_bytes, void* stream) {
   const int HC = H * C;
   if (!plan_ok(N, DI, DK, HC, C, L, K, grid, threads, warpgroups, i_chunk,
                smem_bytes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const FwdKernel kern =
+      fwd_instance((drop != nullptr) + 2 * (alpha != nullptr));
   cudaError_t err = cudaFuncSetAttribute(
-      blocked_attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  blocked_attn_fwd_kernel<<<dim3(grid, HC / threads), threads * warpgroups,
-                            smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, e, rbf, w, bias, z, a_ids, b_ids, out, N, DI, DK, HC, threads,
-      C, L, K, i_chunk, static_cast<float>(1.0 / sqrt(static_cast<double>(C))));
+  kern<<<dim3(grid, HC / threads), threads * warpgroups, smem_bytes,
+         static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, e, rbf, w, bias, z, a_ids, b_ids, drop, out, alpha, N, DI, DK,
+      HC, threads, C, L, K, i_chunk,
+      static_cast<float>(1.0 / sqrt(static_cast<double>(C))));
   return static_cast<int>(cudaGetLastError());
 }
 
 // info[0..3] = registers per thread, local (spill) bytes per thread, static
-// shared bytes, and resident CTAs per SM of the forward kernel at
-// `threads` threads and `smem_bytes` of dynamic shared memory.
-int blocked_attn_fwd_occupancy(int threads, int smem_bytes, int* info) {
+// shared bytes, and resident CTAs per SM of the forward kernel's instance
+// `variant` (0..3, as fwd_instance) at `threads` threads and `smem_bytes`
+// of dynamic shared memory.
+int blocked_attn_fwd_occupancy(int threads, int smem_bytes, int variant,
+                               int* info) {
+  const FwdKernel kern = fwd_instance(variant);
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, blocked_attn_fwd_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&attr, kern);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(blocked_attn_fwd_kernel,
+  err = cudaFuncSetAttribute(kern,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, blocked_attn_fwd_kernel, threads, smem_bytes);
+      &blocks, kern, threads, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   info[0] = attr.numRegs;
   info[1] = static_cast<int>(attr.localSizeBytes);

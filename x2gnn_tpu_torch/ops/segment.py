@@ -1,6 +1,6 @@
-"""Masked segment sum (x2gnn_tpu/ops/segment.py:32-36): masked-out rows
-contribute nothing regardless of their segment id, which keeps padding
-(segment id 0 by convention) inert.
+"""Masked segment sum and mean (x2gnn_tpu/ops/segment.py:32-45):
+masked-out rows contribute nothing regardless of their segment id, which
+keeps padding (segment id 0 by convention) inert.
 
 The sum runs in a fixed order: each segment selects its rows with
 `torch.where` from a (segments x rows) membership table, and a dense
@@ -43,3 +43,16 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     out = torch.cat([torch.where(member[s:s + per, :, None], rows, 0.0).sum(1)
                      for s in range(0, num_segments, per)])
     return out.reshape((num_segments,) + data.shape[1:])
+
+
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked mean of `data` rows per segment, the count floored at 1 (an
+    empty segment gives 0), in the fixed order of `segment_sum`
+    (x2gnn_tpu/ops/segment.py:39-45, torch-scatter's scatter_mean)."""
+    total = segment_sum(data, segment_ids, num_segments, mask)
+    ones = torch.ones(data.shape[0], dtype=data.dtype, device=data.device)
+    count = torch.clamp(segment_sum(ones, segment_ids, num_segments, mask),
+                        min=1.0)
+    return total / count.reshape(count.shape + (1,) * (data.dim() - 1))

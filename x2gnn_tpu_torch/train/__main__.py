@@ -6,6 +6,9 @@ train.py (:168-358):
     python -m x2gnn_tpu_torch.train --data-npz cache.npz \\
         --config runs/flagship_r5_regression/args.json --pack-mixed \\
         --workdir runs/packed      # a graph cache, the flagship recipe
+    python -m x2gnn_tpu_torch.train --data-npz cache.npz \\
+        --config runs/gap_r5_50k/args.json --pack-mixed \\
+        --workdir runs/gap       # the gap recipe: molwise_mean, dropout
     python -m x2gnn_tpu_torch.train ... --auto-resume   # after a crash
     python -m x2gnn_tpu_torch.train --device cpu --synthetic 24 \\
         --epochs 2 --batch-size 8 --workdir /tmp/run   # on the CPU
@@ -17,7 +20,9 @@ from `prepare_targets`. Featurizing xyz files (--data) is not ported yet
 (ROADMAP A11).
 
 The model is `ModelConfig` (or the `model` block of --config) in the
-blocked layout, with random weights from seed 0. --resume CKPT continues
+blocked layout, with random weights from seed 0; the target picks its
+readout (atomwise for the extensive targets 6-11, else molwise_mean), and
+its attention dropout trains with a per-step mask. --resume CKPT continues
 from a checkpoint; --auto-resume from the newest `ckpt_*.pt` of the
 workdir if there is one. A resumed run trains the epochs left,
 max_epoch - step // steps_per_epoch, and numbers them on from there.

@@ -16,12 +16,15 @@ reference does for datasets under ~20k molecules), so each is copied to
 the card once per run.
 Each step runs the model forward, autograd's backward (the attention's
 through the CUDA backward kernel), then clip, Adam and the EMA, with the
-non-finite skip decided on the device. The parameters are updated in
-place; with `fused_update` they are views into one flat vector, which the
-optimizer and the EMA update as a whole. A state handed in from outside
-(`restore`, `fit(state=)`) is first copied into those live tensors
-(`use_state`). A resumed run counts epochs globally from its restored
-step (trainer.py:571-609).
+non-finite skip decided on the device. With attention dropout, a step
+draws its masks from a generator seeded by (random_seed, step), as the
+reference folds the step into its dropout key (:244-254): a step repeats
+bit for bit, and a resumed run drops what an unbroken one drops. The
+parameters are updated in place; with `fused_update` they are views into
+one flat vector, which the optimizer and the EMA update as a whole. A
+state handed in from outside (`restore`, `fit(state=)`) is first copied
+into those live tensors (`use_state`). A resumed run counts epochs
+globally from its restored step (trainer.py:571-609).
 """
 
 from __future__ import annotations
@@ -111,7 +114,6 @@ class Trainer:
             (mesh is not None, "a device mesh (data parallelism)", "A10"),
             (edge_partition is not None, "edge_partition", "A10"),
             (feat_dtype != "float32", f"feat_dtype={feat_dtype!r}", "A8b"),
-            (model_cfg.dropout > 0, "attention dropout", "A8b"),
         ]
         for bad, what, item in unported:
             if bad:
@@ -151,10 +153,26 @@ class Trainer:
                       if train_cfg.fused_update else None)
 
     # ---- steps -----------------------------------------------------------
-    def train_step(self, state: TrainState, batch: GraphBatch):
+    def dropout_generator(self, step: int) -> torch.Generator:
+        """The generator of the dropout masks of optimizer step `step`, on
+        the trainer's device: seeded by (random_seed, step), so the same
+        step draws the same masks in every run."""
+        g = torch.Generator(device=self.device)
+        return g.manual_seed((self.tcfg.random_seed << 32) + int(step))
+
+    def train_step(self, state: TrainState, batch: GraphBatch,
+                   step: Optional[int] = None):
         """One optimization step (trainer.py:239-264); returns (state,
-        loss) with the loss still on the device."""
-        pred = self.model(batch)
+        loss) with the loss still on the device. With attention dropout,
+        the masks come from `dropout_generator` of `step`, state.step's
+        value (read from the device when not given)."""
+        if self.mcfg.dropout > 0:
+            if step is None:
+                step = int(state.step)
+            pred = self.model(batch, deterministic=False,
+                              generator=self.dropout_generator(step))
+        else:
+            pred = self.model(batch)
         loss = smooth_l1_loss(pred, batch.y, mask=batch.graph_mask)
         grads = torch.autograd.grad(loss, self._leaves)
         if self._flat is not None:
@@ -311,8 +329,12 @@ class Trainer:
         (state, mean loss per molecule). The losses stay on the device
         until the epoch ends (one transfer, no per-step sync)."""
         losses, counts = [], []
+        # the steps' numbers for their dropout masks, read once per epoch
+        step = int(state.step) if self.mcfg.dropout > 0 else None
         for batch in self.train_order(epoch):
-            state, loss = self.train_step(state, batch)
+            state, loss = self.train_step(state, batch, step)
+            if step is not None:
+                step += 1
             losses.append(loss)
             counts.append(batch.graph_mask.sum())
         losses = torch.stack(losses).cpu().numpy().astype(np.float64)
