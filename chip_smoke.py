@@ -100,6 +100,30 @@ Phases, each of which raises on failure (exit code != 0):
      first packed batch (timed in turns with the instance without mask),
      that batch as one window, and the AID step's DK>40 tier (timed),
      and on 128 atoms of phase 6's HC=1024 batch (8 channel groups).
+ 10. the flagship recipe's precision and memory options (train.py
+     --compute-dtype bfloat16, --feat-dtype float16|int8, --remat,
+     --accum-steps): (b) Trainer.fit 1 epoch with the bf16 conv stack on
+     float16 features, only bf16 instances launched, 32 bf16 forwards,
+     backwards and reduces in a packed step, the step bitwise on a rerun,
+     one step on the card against the CPU on the first packed batch
+     (loss within 1e-2, gradients within 2e-2 of each one's largest
+     magnitude), the training CLI for 1 epoch, ms per step and device
+     busy ms in turns with the float32 step; (c) remat on the bf16
+     flagship and gap models: gradients bitwise those without, forward
+     launches doubled, peak device memory of both; (d) accum_steps=2 on
+     int8 features: parameters unchanged after a micro-step that does not
+     emit, finite losses, and the CLI with all four options; (e)
+     Predictor.from_run of the bf16 run serves the 256 molecules, its
+     molecules/s in turns with the float32 Predictor's; (a) the eight bf16
+     instances (forward plain, drop, alpha, drop+alpha; backward plain,
+     drop, galpha, drop+galpha) bitwise equal to their float32 twins on
+     the widened inputs (the gradients after rounding to bf16), bitwise
+     on a rerun and within phase 3's tolerances of their plain versions
+     (one bf16 ulp more for dq, dk, dv, de), on every tier of the first
+     packed batch (timed in turns with the twins), the batch whole, the
+     AID step's DK>40 tier (timed) and HC=1024; their launches from the
+     bf16 epoch, two bf16 gap steps and conv_0's attention weights with
+     and without dropout.
 Each row of the kernels line takes its launches from a path that launches
 its shape, with the counts zeroed just before that path.
 The line before the last is a JSON object {"kernels": [...]}; the last
@@ -108,12 +132,14 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -139,6 +165,12 @@ MODEL_RTOL, MODEL_ATOL = 1e-4, 1e-4
 # holds the CPU port against JAX (lin_key biases: see
 # check_step_on_card_and_cpu)
 GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4
+# the bf16 model (compute_dtype "bfloat16"), card against CPU: the loss
+# within 1e-2 relative, each parameter's gradient within 2e-2 of its
+# largest magnitude, the tolerances tests/test_torch_port_bf16.py holds the
+# port's bf16 model to against JAX's (bf16 rounds at other places in the
+# two GEMM libraries; either side can land one bf16 ulp away)
+BF16_PRED_TOL, BF16_GRAD_TOL = 1e-2, 2e-2
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 FLOP/s
 # outside the tensor cores
@@ -200,19 +232,23 @@ def valid_pairs(args):
 def live_input_bytes(args, valid, query_inputs=1):
     """Bytes of the attention inputs that the function's value depends on
     at these ids, each read once: the rows of q (and of `query_inputs` - 1
-    more (N, DI, HC) inputs) at query slots in a valid pair, the rows of k,
-    v and rbf at key slots in a valid pair, z at the valid pairs, e of the
-    atoms with a valid pair, and all of the ids, W and the bias. No other
-    row changes an output: a query slot without a valid pair gives 0."""
+    more (N, DI, HC) float32 inputs) at query slots in a valid pair, the
+    rows of k, v and rbf at key slots in a valid pair, z at the valid
+    pairs, e of the atoms with a valid pair, and all of the ids, W and the
+    bias. No other row changes an output: a query slot without a valid
+    pair gives 0. q, k, v and e count at their storage's element size (4
+    bytes float32, 2 bfloat16), the others at 4."""
     q, k, v, e, rbf, w, bias, z, a_ids, b_ids = args
     HC = q.shape[-1]
     q_rows = int(valid.any(dim=2).sum())
     k_rows = int(valid.any(dim=1).sum())
     atoms = int(valid.flatten(1).any(dim=1).sum())
-    words = (q_rows * HC * query_inputs + k_rows * (2 * HC + rbf.shape[-1])
-             + int(valid.sum()) + atoms * HC + a_ids.numel() + b_ids.numel()
+    words = (q_rows * HC * (query_inputs - 1) + k_rows * rbf.shape[-1]
+             + int(valid.sum()) + a_ids.numel() + b_ids.numel()
              + w.numel() + bias.numel())
-    return 4 * words
+    return (4 * words + q_rows * HC * q.element_size()
+            + k_rows * HC * (k.element_size() + v.element_size())
+            + atoms * HC * e.element_size())
 
 
 def attention_work(args, heads: int, num_radial: int, out_bytes: int):
@@ -375,7 +411,7 @@ def attention_bwd_work(args, g, out, heads: int, num_radial: int):
            + n_keys * 4 * L * num_radial * HC)
     grads = [q, k, v, e, w, bias]          # dq, dk, dv, de, dW, db
     nbytes = (live_input_bytes(args, valid, query_inputs=2)
-              + sum(t.numel() * 4 for t in grads))
+              + sum(t.numel() * t.element_size() for t in grads))
     out_bytes = int(valid.any(dim=2).sum()) * HC * out.element_size()
     return nbytes, out_bytes, ops, n_pairs
 
@@ -625,10 +661,11 @@ def one_window_budgets(graphs, batch_size):
         n_deg_lo=0, n_hi=0, tiers=())
 
 
-def train_flagship(mcfg, tcfg, graphs, device, tag, budgets=None):
+def train_flagship(mcfg, tcfg, graphs, device, tag, budgets=None,
+                   feat_dtype="float32"):
     """Phase 6a-6c: Trainer.fit over `graphs` for tcfg.max_epoch epochs in
-    a temporary workdir, with every launch count zeroed just before and
-    read just after. Checks finite losses, no skipped step, one metrics
+    a temporary workdir (edge features cached as `feat_dtype`), with every
+    launch count zeroed just before and read just after. Checks finite losses, no skipped step, one metrics
     record per epoch and launches = conv_layers x the attention windows
     (one per non-empty degree tier) of the train steps, for the forward
     also of the eval batches. Returns (trainer, state, records, counts,
@@ -643,7 +680,8 @@ def train_flagship(mcfg, tcfg, graphs, device, tag, budgets=None):
     model = X2GNN(mcfg, torch.Generator().manual_seed(0), device=device)
     with tempfile.TemporaryDirectory() as workdir:
         trainer = Trainer(model, mcfg, tcfg, graphs, targets,
-                          workdir=workdir, budgets=budgets, device=device)
+                          workdir=workdir, budgets=budgets,
+                          feat_dtype=feat_dtype, device=device)
         log(f"[train {tag}] {len(trainer.train_idx)} train / "
             f"{len(trainer.val_idx)} val / {len(trainer.test_idx)} test "
             f"molecules, base budgets {tuple(trainer.budgets)}")
@@ -738,7 +776,11 @@ def check_step_on_card_and_cpu(mcfg, graphs, device, tag="card vs cpu",
     rate. The lin_key biases
     shift every score of a query alike, which the softmax ignores: their
     gradient is 0 in exact arithmetic and rounding noise on both sides,
-    held below 1e-6 of the largest gradient instead."""
+    held below 1e-6 of the largest gradient instead. With compute_dtype
+    bfloat16 (phase 10b) the loss is held within BF16_PRED_TOL relative,
+    each gradient within BF16_GRAD_TOL of its largest magnitude and the
+    lin_key biases below 1e-3 of the largest gradient, as
+    tests/test_torch_port_bf16.py holds the bf16 model against JAX."""
     import numpy as np
     import torch
     from x2gnn_tpu_torch.data.batching import pad_budget_for, pad_graphs
@@ -779,7 +821,9 @@ def check_step_on_card_and_cpu(mcfg, graphs, device, tag="card vs cpu",
         f"{'' if masks is None else ' (the same explicit masks)'}: loss "
         f"{loss:.7f} card, "
         f"{cpu_loss:.7f} CPU ({time.perf_counter() - t0:.1f} s on the CPU)")
-    if abs(loss - cpu_loss) > 1e-5 * abs(cpu_loss):
+    bf16 = mcfg.compute_dtype == "bfloat16"
+    if abs(loss - cpu_loss) > (BF16_PRED_TOL if bf16 else 1e-5) * abs(
+            cpu_loss):
         raise AssertionError(f"{tag}: losses differ")
     top = max(float(t.abs().max()) for t in g_cpu.values())
     worst = (0.0, "")
@@ -788,17 +832,21 @@ def check_step_on_card_and_cpu(mcfg, graphs, device, tag="card vs cpu",
         err = (got - ref).abs()
         if name.endswith("lin_key.bias"):
             if max(float(got.abs().max()), float(ref.abs().max())) \
-                    >= 1e-6 * top:
+                    >= (1e-3 if bf16 else 1e-6) * top:
                 raise AssertionError(f"{tag}: {name} not ~0")
             continue
         limit = GRAD_ATOL * float(ref.abs().max()) + GRAD_RTOL * ref.abs()
+        if bf16:
+            limit = BF16_GRAD_TOL * float(ref.abs().max())
         if (err > limit).any() or not torch.isfinite(got).all():
             raise AssertionError(f"{tag}: gradient of {name} differs"
                                  f" (max abs {float(err.max()):.3e})")
         rel = float(err.max()) / max(float(ref.abs().max()), 1e-30)
         worst = max(worst, (rel, name))
-    log(f"[{tag}] {len(g_cpu)} gradients agree within {GRAD_RTOL} "
-        f"relative + {GRAD_ATOL} of each one's largest magnitude; largest "
+    within = (f"{BF16_GRAD_TOL} of each one's largest magnitude" if bf16
+              else f"{GRAD_RTOL} relative + {GRAD_ATOL} of each one's "
+              "largest magnitude")
+    log(f"[{tag}] {len(g_cpu)} gradients agree within {within}; largest "
         f"max|err|/max|g| {worst[0]:.3e} ({worst[1]})")
 
 
@@ -916,7 +964,8 @@ def resumed_record_diffs(straight, resumed, first_resumed):
     return diffs
 
 
-def flagship_trainer(mcfg, tcfg, graphs, device, workdir, seed=0):
+def flagship_trainer(mcfg, tcfg, graphs, device, workdir, seed=0,
+                     feat_dtype="float32"):
     import numpy as np
     import torch
     from x2gnn_tpu_torch.models.x2gnn import X2GNN
@@ -924,7 +973,7 @@ def flagship_trainer(mcfg, tcfg, graphs, device, workdir, seed=0):
     model = X2GNN(mcfg, torch.Generator().manual_seed(seed), device=device)
     return Trainer(model, mcfg, tcfg, graphs,
                    np.array([g.y[0] for g in graphs], np.float32),
-                   workdir=workdir, device=device)
+                   workdir=workdir, feat_dtype=feat_dtype, device=device)
 
 
 def check_segment_sum_on_card(device):
@@ -1422,12 +1471,14 @@ def check_gap_launches(trainer, records, shapes, tag):
                              f"{expect}")
 
 
-def alpha_on_a_path(mcfg, batch, device):
+def alpha_on_a_path(mcfg, batch, device, deterministic=False):
     """Phase 9d: the gap model's first conv with return_attention_weights
     on the packed batch, dropout drawn, a loss of its output and alpha,
     backward: one drop+alpha forward and one drop+galpha backward per
-    window; alpha (N, D, D, H) is a softmax over the valid pairs and 0
-    elsewhere. Returns the counts per shape and variant."""
+    window (without the dropout, `deterministic`: alpha and galpha; with
+    compute_dtype bfloat16 their bf16 instances); alpha (N, D, D, H) is a
+    softmax over the valid pairs and 0 elsewhere. Returns the counts per
+    shape and variant."""
     import numpy as np
     import torch
     from x2gnn_tpu_torch.models.x2gnn import X2GNN, blocked_geometry
@@ -1451,7 +1502,7 @@ def alpha_on_a_path(mcfg, batch, device):
     reset_launch_counts()
     out, alpha = model.conv_0(
         x, rbf, edge_attr, geo.out2in, geo.in2out, geo.mask_flat,
-        geo.windows, deterministic=False,
+        geo.windows, deterministic=deterministic,
         generator=torch.Generator(device=device).manual_seed(3),
         return_attention_weights=True)
     loss = (out * out).mean() + (alpha * w).sum()
@@ -1463,8 +1514,11 @@ def alpha_on_a_path(mcfg, batch, device):
     rows = valid.any(dim=2)
     alpha = alpha.detach()
     sums = alpha.sum(dim=2)[rows]
-    log(f"[alpha path] conv_0 with return_attention_weights on the packed "
-        f"batch N={N}, D={D}: alpha {tuple(alpha.shape)}, valid rows sum to "
+    prefix = "bf16:" if mcfg.compute_dtype == "bfloat16" else ""
+    fwd = prefix + ("alpha" if deterministic else "drop+alpha")
+    bwd = prefix + ("galpha" if deterministic else "drop+galpha")
+    log(f"[alpha path] conv_0 ({fwd}) with return_attention_weights on the "
+        f"packed batch N={N}, D={D}: alpha {tuple(alpha.shape)}, valid rows sum to "
         f"1 within {float((sums - 1).abs().max()):.2e}, launches per "
         f"variant fwd {per_variant(shapes['fwd_variants'])}, bwd "
         f"{per_variant(shapes['bwd_variants'])}")
@@ -1474,8 +1528,8 @@ def alpha_on_a_path(mcfg, batch, device):
             or float((sums - 1).abs().max()) > 1e-5
             or not all(torch.isfinite(t).all() for t in (out, *grads))):
         raise AssertionError("alpha path: wrong alpha or non-finite output")
-    if (per_variant(shapes["fwd_variants"]) != {"drop+alpha": n}
-            or per_variant(shapes["bwd_variants"]) != {"drop+galpha": n}):
+    if (per_variant(shapes["fwd_variants"]) != {fwd: n}
+            or per_variant(shapes["bwd_variants"]) != {bwd: n}):
         raise AssertionError(f"alpha path: launches {shapes}")
     return shapes
 
@@ -1627,6 +1681,504 @@ def gap_recipe(card, device, train_graphs, aid, packed, pstate,
                 f"launches {sum(r['launches'] for r in sel)}")
     reset_launch_counts()
     return rows, grecords
+
+# ---- phase 10: bf16 storage, feature dtypes, remat, accumulation ----
+
+def bf16_ulp(t):
+    """One bf16 ulp of each element of t, 2^(e - 7) for 2^e <= |t| <
+    2^(e+1): the bf16 gradients dq, dk, dv, de are the float32 ones rounded
+    once, so against the plain version's float32 gradients they are held
+    to phase 3's tolerances plus this."""
+    import torch
+    return torch.exp2(torch.floor(torch.log2(t.abs().clamp(min=1e-30))) - 7)
+
+
+def bf16_args(args):
+    """(q, k, v and e in bf16 storage with the rest of `args`, the same
+    values with q, k, v and e widened back to float32): a bf16 instance's
+    inputs and its float32 twin's."""
+    import torch
+    low = tuple(t.to(torch.bfloat16) if i < 4 else t
+                for i, t in enumerate(args))
+    return low, tuple(t.float() if i < 4 else t for i, t in enumerate(low))
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def check_bf16_window(tag, args, cfg, seed, timed):
+    """Phase 10a on one window: the eight bf16 instances (forward plain,
+    drop, alpha, drop+alpha; backward plain, drop, galpha, drop+galpha) on
+    q, k, v and e in bf16 storage, under a seeded mask at the gap recipe's
+    rate: each bitwise equal to its float32 twin on the same values widened
+    to float32 (out and alpha; the dW/db partials; dq, dk, dv and de equal
+    to the twin's rounded to bf16), bitwise equal on a rerun, within phase
+    3's tolerances of its plain version (dq, dk, dv and de compared in
+    float32 with one bf16 ulp of each element more), dead rows 0. With
+    `timed`, each
+    instance's device time back to back (backlog_ms) in turns with its
+    float32 twin, its plain version's time, its bound (q, k, v, e and their
+    gradients at 2 bytes) and occupancy; returns {"fwd <variant>" or "bwd
+    <variant>": record}."""
+    import numpy as np
+    import torch
+    from x2gnn_tpu_torch.ops.blocked_attn import (
+        BWD_VARIANTS, FWD_VARIANTS, blocked_attention_bwd,
+        blocked_attention_bwd_partials, blocked_attention_bwd_plain,
+        blocked_attention_fwd, blocked_attention_plain, bwd_occupancy,
+        bwd_plan, fwd_occupancy, fwd_plan)
+
+    H, K = cfg.heads, cfg.rbf_dim
+    low, up = bf16_args(args)
+    N, DI, HC = args[0].shape
+    DK = args[1].shape[1]
+    dev = args[0].device
+    tag = f"{tag} N={N} DI={DI} DK={DK} HC={HC}"
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.normal(size=(N, DI, HC)).astype(
+        np.float32)).to(dev)
+    galpha = torch.from_numpy(rng.normal(size=(N, DI, DK, H)).astype(
+        np.float32)).to(dev)
+    mask = keep_mask((N, DI, DK, H), DROP_RATES[0], seed + 1, dev)
+    dead = args[8] < 0
+    err, outs, calls, twins, plains = {}, {}, {}, {}, {}
+    for m in (None, mask):
+        for want_alpha in (False, True):
+            name = "fwd " + FWD_VARIANTS[4 + (m is not None)
+                                         + 2 * want_alpha]
+            kw = dict(heads=H, num_radial=K, dropout_mask=m,
+                      return_alpha=want_alpha)
+            got = _as_tuple(blocked_attention_fwd(*low, **kw))
+            again = _as_tuple(blocked_attention_fwd(*low, **kw))
+            twin = _as_tuple(blocked_attention_fwd(*up, **kw))
+            ref = _as_tuple(blocked_attention_plain(*low, **kw))
+            if not all(torch.equal(a, b) for a, b in zip(got, twin)):
+                raise AssertionError(f"{name} {tag}: not its float32 twin's "
+                                     "result on the widened inputs")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name} {tag}: two runs differ")
+            if (got[0][dead] != 0).any():
+                raise AssertionError(f"{name} {tag}: a dead row is not 0")
+            err[name] = max(_held(f"{name} {tag}", n, a, b, KERNEL_RTOL,
+                                  KERNEL_ATOL)
+                            for n, a, b in zip(("out", "alpha"), got, ref))
+            if not want_alpha:
+                outs[m is None] = got[0]
+            calls[name] = (lambda kw=kw: blocked_attention_fwd(*low, **kw))
+            twins[name] = (lambda kw=kw: blocked_attention_fwd(*up, **kw))
+            plains[name] = (lambda kw=kw: blocked_attention_plain(*low,
+                                                                  **kw))
+        for ga in (None, galpha):
+            name = "bwd " + BWD_VARIANTS[4 + (m is not None)
+                                         + 2 * (ga is not None)]
+            kw = dict(heads=H, num_radial=K, out=outs[m is None],
+                      dropout_mask=m, galpha=ga)
+            got = blocked_attention_bwd_partials(*low, g, **kw)
+            again = blocked_attention_bwd_partials(*low, g, **kw)
+            twin = blocked_attention_bwd_partials(*up, g, **kw)
+            for n, a, b in zip(("dq", "dk", "dv", "de", "partial"), got,
+                               twin):
+                want = b if n == "partial" else b.to(torch.bfloat16)
+                if a.dtype != want.dtype or not torch.equal(a, want):
+                    raise AssertionError(
+                        f"{name} {tag}: {n} is not its float32 twin's "
+                        "(rounded to bf16)")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name} {tag}: two runs differ")
+            full = blocked_attention_bwd(*low, g, **kw)
+            ref = blocked_attention_bwd_plain(*low, g, **kw)
+            errs = []
+            for n, a, b in zip(GRAD_NAMES, full, ref):
+                e = (a.float() - b).abs()
+                limit = BWD_ATOL * float(b.abs().max()) + BWD_RTOL * b.abs()
+                if a.dtype == torch.bfloat16:
+                    limit = limit + bf16_ulp(b)
+                if (e > limit).any() or not torch.isfinite(a).all():
+                    raise AssertionError(
+                        f"{name} {tag}: {int((e > limit).sum())} elements "
+                        f"of {n} disagree with the plain version")
+                errs.append(float(e.max()))
+            err[name] = max(errs)
+            calls[name] = (lambda kw=kw: blocked_attention_bwd_partials(
+                *low, g, **kw))
+            twins[name] = (lambda kw=kw: blocked_attention_bwd_partials(
+                *up, g, **kw))
+            plains[name] = (lambda kw=kw: blocked_attention_bwd_plain(
+                *low, g, **kw))
+    log(f"[bf16 {tag}] 8 instances: bitwise their float32 twins on the "
+        "widened inputs (bwd gradients rounded to bf16), reruns bitwise, "
+        "within phase 3's tolerances of their plain versions; max_abs_err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in err.items()))
+    if not timed:
+        return None
+
+    L = args[4].shape[-1] // K
+    fplan, bplan = (fwd_plan(N, DI, DK, HC, H, L, K),
+                    bwd_plan(N, DI, DK, HC, H, L, K))
+    records = {}
+    for name, fn in calls.items():
+        side, variant = name.split()
+        turns = {"bf16": [], "float32": []}
+        for which in ("float32", "bf16", "bf16", "float32"):
+            turns[which].append(backlog_ms(fn if which == "bf16"
+                                           else twins[name]))
+        nbytes, ops = masked_work(low, H, K, side + " "
+                                  + variant[len("bf16:"):])
+        bound_ms, bound_by, t_bytes, t_ops = bound(nbytes, ops)
+        occ = (fwd_occupancy(fplan, variant) if side == "fwd"
+               else bwd_occupancy(bplan, variant))
+        ms = turns["bf16"][0]
+        records[name] = {
+            "ms": ms, "ms_turns": turns["bf16"],
+            "ms_float32": turns["float32"],
+            "plain_ms": median_ms(plains[name], reps=10, warmup=2),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err[name], "library_ms": None,
+            "warps_per_sm": occ["warps_per_sm"],
+            "registers": occ["registers"], "spill_bytes": occ["spill_bytes"]}
+        log(f"[bf16 {tag}] {name}: {turns['bf16'][0]:.4f} / "
+            f"{turns['bf16'][1]:.4f} ms back to back, float32 twin "
+            f"{turns['float32'][0]:.4f} / {turns['float32'][1]:.4f} (in "
+            f"turns); plain {records[name]['plain_ms']:.4f} ms; {nbytes} "
+            f"bytes ({t_bytes:.4f} ms), {ops} ops ({t_ops:.4f} ms): "
+            f"{ms / bound_ms:.1f}x its bound; {occ['registers']} registers, "
+            f"{occ['spill_bytes']} B spilled, {occ['warps_per_sm']} warps "
+            "per SM")
+    return records
+
+
+def bf16_window_rows(tag, records, shape, counts, note, ichunk):
+    """Rows of the kernels line for one window's bf16 instances: each
+    record of check_bf16_window with its launches on the path that runs
+    it (`counts`: {"fwd"/"bwd": {(variant, N, DI, DK): launches}})."""
+    rows = []
+    for name, rec in records.items():
+        side, variant = name.split()
+        line = {"fwd": 282 if ichunk else 166,
+                "bwd": 346 if ichunk else 198}[side]
+        rows.append({
+            "name": f"blocked_attn_{side} ({variant}, {tag})",
+            "route": "cuda",
+            "source": f"x2gnn_tpu_torch/ops/csrc/blocked_attn_{side}.cu",
+            "replaces": f"{PALLAS}:{line}",
+            "launches": counts[side].get((variant, *shape), 0),
+            "window": note, **rec})
+    return rows
+
+
+def merge_variant_counts(*shapes):
+    """{"fwd"/"bwd": {(variant, N, DI, DK): launches}} of several paths'
+    launch_shapes, each zeroed just before its path (their variants
+    differ)."""
+    out = {"fwd": {}, "bwd": {}}
+    for s in shapes:
+        for side in out:
+            for key, n in s[f"{side}_variants"].items():
+                out[side][key] = out[side].get(key, 0) + n
+    return out
+
+
+def cli_run(tag, extra, graphs):
+    """`python -m x2gnn_tpu_torch.train` on the flagship recipe for 1 epoch
+    on `graphs` molecules with the options `extra`, in a temporary
+    directory kept by the caller: (workdir, its one metrics record, the
+    run's args.json)."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    run_cli(["x2gnn_tpu_torch.train", "--config", FLAGSHIP_ARGS,
+             "--synthetic", str(graphs), "--epochs", "1", "--pack-mixed",
+             *extra, "--workdir", work], tag)
+    (record,) = read_records(work)
+    with open(os.path.join(work, "args.json")) as f:
+        saved = json.load(f)
+    log(f"[{tag}] epoch 1: loss {record['loss']:.6f} val_mae "
+        f"{record['val_mae']:.6f} step {record['step']} bad_steps "
+        f"{record['bad_steps']}; model compute_dtype "
+        f"{saved['model']['compute_dtype']}, remat {saved['model']['remat']}"
+        f", accum_steps {saved['train']['accum_steps']}")
+    if not math.isfinite(record["loss"]) or record["bad_steps"]:
+        raise AssertionError(f"{tag}: {record}")
+    return work, record, saved
+
+
+def grads_of_step(model, batch, generator=None):
+    """One training step's loss and gradients of `model` on a cached
+    batch (with attention dropout drawn from `generator` if given), every
+    launch count zeroed just before and the device's peak memory reset:
+    (loss, grads, launch counts, peak bytes, bytes allocated before)."""
+    import torch
+    from x2gnn_tpu_torch.ops.blocked_attn import reset_launch_counts
+    from x2gnn_tpu_torch.train.loss import smooth_l1_loss
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    kw = ({} if generator is None
+          else dict(deterministic=False, generator=generator))
+    pred = model(batch, **kw)
+    loss = smooth_l1_loss(pred, batch.y, mask=batch.graph_mask)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    torch.cuda.synchronize()
+    return (loss, grads, launch_counts(), torch.cuda.max_memory_allocated(),
+            before)
+
+
+def check_remat(cfg, batch, device, tag, seed=None):
+    """Phase 10c on one cached batch: a step's loss and gradients with
+    remat equal those without bitwise (with dropout, both drawing from a
+    generator of one seed); the forward launches doubled; the peak device
+    memory of both steps. Returns {remat: (peak bytes, step bytes)}."""
+    import torch
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    out = {}
+    for remat in (False, True):
+        model = X2GNN(dataclasses.replace(cfg, remat=remat),
+                      torch.Generator().manual_seed(0), device=device)
+        gen = (None if seed is None
+               else torch.Generator(device=device).manual_seed(seed))
+        loss, grads, counts, peak, before = grads_of_step(model, batch, gen)
+        out[remat] = (loss, grads, counts, peak, peak - before)
+        del model
+    windows = cfg.conv_layers * len(windows_of(batch))
+    (l0, g0, c0, p0, s0), (l1, g1, c1, p1, s1) = out[False], out[True]
+    log(f"[{tag}] one step on N, D = {tuple(batch.in_edges.shape)}: "
+        f"launches without remat {c0}, with remat {c1}; peak device memory "
+        f"{p0 / 2**20:.1f} MiB without, {p1 / 2**20:.1f} MiB with remat "
+        f"(the step's own {s0 / 2**20:.1f} against {s1 / 2**20:.1f} MiB)")
+    if not (torch.equal(l0, l1)
+            and all(torch.equal(a, b) for a, b in zip(g0, g1))):
+        raise AssertionError(f"{tag}: gradients with remat differ")
+    if (c0 != {"fwd": windows, "bwd": windows, "reduce": windows}
+            or c1 != {"fwd": 2 * windows, "bwd": windows,
+                      "reduce": windows}):
+        raise AssertionError(f"{tag}: launches {c0}, {c1}")
+    log(f"[{tag}] loss and all {len(g0)} gradients bitwise equal with and "
+        "without remat")
+    return {False: (p0, s0), True: (p1, s1)}
+
+
+def check_accumulation(cfg, tcfg, graphs, device):
+    """Phase 10d: accum_steps=2 on int8 features (per-edge scales in the
+    device cache): four micro-steps, the parameters unchanged after the
+    first and third (not emitting) and moved after the second and fourth,
+    the losses finite."""
+    import torch
+    trainer = flagship_trainer(cfg, dataclasses.replace(tcfg, accum_steps=2),
+                               graphs, device, "unused", feat_dtype="int8")
+    batches = trainer.batches(trainer.train_idx)
+    b0 = batches[0]
+    if b0.edge_feat.dtype != torch.int8 or b0.edge_feat_scale is None:
+        raise AssertionError("accum: the cached features are not int8")
+    state = trainer.init_state()
+    moved, losses = [], []
+    for i in range(4):
+        before = [p.detach().clone() for p in state.params]
+        state, loss = trainer.train_step(state, batches[i])
+        losses.append(float(loss))
+        moved.append(not all(torch.equal(a, b)
+                             for a, b in zip(before, state.params)))
+    log(f"[accum] accum_steps=2, int8 features ({b0.edge_feat.shape} int8 + "
+        f"{tuple(b0.edge_feat_scale.shape)} scales): losses {losses}, "
+        f"parameters moved after micro-steps {moved}, Adam count "
+        f"{int(state.opt_state.count)}, micro-step {int(state.opt_state.mini_step)}")
+    if (moved != [False, True, False, True]
+            or not all(math.isfinite(x) for x in losses)
+            or int(state.opt_state.count) != 2 or int(state.bad_steps)):
+        raise AssertionError(f"accum: moved {moved}, losses {losses}")
+
+
+def predict_rate(pred, graphs, calls=3):
+    """Molecules/s of `calls` predict calls after one warm-up."""
+    pred.predict(graphs)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        pred.predict(graphs)
+    return len(graphs) * calls / (time.perf_counter() - t0)
+
+
+def bf16_recipe(card, device, train_graphs, aid, qm9, packed, pstate, pred,
+                train_batch):
+    """Phase 10: the flagship recipe with its precision and memory options
+    (bf16 conv stack, float16 and int8 features, remat, accumulation) on
+    the card; `packed`/`pstate` are phase 6a's float32 trainer and state,
+    `pred` phase 4's float32 Predictor, `train_batch` the one-window fixed
+    batch of phase 6c. Returns the rows of the kernels line."""
+    import torch
+    from x2gnn_tpu_torch.data.batching import pad_graphs
+    from x2gnn_tpu_torch.infer import Predictor
+    from x2gnn_tpu_torch.ops.blocked_attn import (
+        blocked_attention, reset_launch_counts)
+    from x2gnn_tpu_torch.profile_training import flagship_training_configs
+    from x2gnn_tpu_torch.train.trainer import cast_feat
+    from x2gnn_tpu_torch.utils.determinism import (
+        check_train_step_determinism)
+
+    mcfg, tcfg = flagship_training_configs()
+    bcfg = dataclasses.replace(mcfg, compute_dtype="bfloat16")
+    btcfg = dataclasses.replace(tcfg, max_epoch=1)
+    gcfg, gtcfg = gap_training_configs()
+    gbcfg = dataclasses.replace(gcfg, compute_dtype="bfloat16")
+
+    # 10b: the recipe with --compute-dtype bfloat16 --feat-dtype float16
+    bf, bstate, brecords, _, bshapes = train_flagship(
+        bcfg, btcfg, train_graphs, device, "bf16", feat_dtype="float16")
+    bbatches = bf.batches(bf.train_idx)
+    variants = {side: per_variant(bshapes[f"{side}_variants"])
+                for side in ("fwd", "bwd")}
+    log(f"[bf16] launches per variant in the epoch {json.dumps(variants)}")
+    if set(variants["fwd"]) != {"bf16:plain"} or set(
+            variants["bwd"]) != {"bf16:plain"}:
+        raise AssertionError(f"bf16: launches {variants}")
+    reset_launch_counts()
+    bstate, _ = bf.train_step(bstate, bbatches[0])
+    torch.cuda.synchronize()
+    step_counts = {"fwd": per_variant(launch_shapes()["fwd_variants"]),
+                   "bwd": per_variant(launch_shapes()["bwd_variants"]),
+                   "reduce": launch_counts()["reduce"]}
+    n = mcfg.conv_layers * len(windows_of(bbatches[0]))
+    log(f"[bf16] one packed step: launches {json.dumps(step_counts)} "
+        f"(expected {n} bf16 forwards, backwards and reduces)")
+    if step_counts != {"fwd": {"bf16:plain": n}, "bwd": {"bf16:plain": n},
+                       "reduce": n}:
+        raise AssertionError(f"bf16 step: launches {step_counts}")
+    report = check_train_step_determinism(bf, repeats=2)
+    log(f"[bf16] train step, 2 repeats: mismatches "
+        f"{json.dumps(report['mismatches'])}")
+    if not report["deterministic"]:
+        raise AssertionError("bf16: the training step differs between two "
+                             "runs")
+    chunks, budgets, _ = bf.plan(bf.train_idx)
+    host = pad_graphs([train_graphs[i] for i in chunks[0]], budgets[0],
+                      n_graph=budgets[0].n_graph or btcfg.batch_size,
+                      targets=bf.targets[chunks[0]])
+    check_step_on_card_and_cpu(bcfg, None, device, tag="bf16 card vs cpu",
+                               batch=cast_feat(host, "float16"))
+    packed_batches = packed.batches(packed.train_idx)
+    turns, busy = {}, {}
+    states = {"bf16": bstate, "float32": pstate}
+    order = (("bf16", bf, bbatches), ("float32", packed, packed_batches),
+             ("float32", packed, packed_batches), ("bf16", bf, bbatches))
+    for tag, trainer, batches in order:
+        ms, states[tag], _ = step_ms(trainer, states[tag], batches)
+        turns.setdefault(tag, []).append(ms)
+    for tag, trainer, batches in order:
+        b, wall, states[tag] = busy_ms(trainer, states[tag], batches,
+                                       steps=2)
+        busy.setdefault(tag, []).append((b, wall))
+    log(f"[bf16] {card}: ms per packed training step (median of 20, CUDA "
+        f"events, in turns): bf16 + float16 features {turns['bf16'][0]:.3f}"
+        f" / {turns['bf16'][1]:.3f}, float32 {turns['float32'][0]:.3f} / "
+        f"{turns['float32'][1]:.3f}")
+    log(f"[bf16] {card}: device busy / wall ms per step (2 steps traced, "
+        "in turns): bf16 " + " / ".join(f"{b:.3f} / {w:.3f}"
+                                         for b, w in busy["bf16"])
+        + ", float32 " + " / ".join(f"{b:.3f} / {w:.3f}"
+                                     for b, w in busy["float32"]))
+    log(f"[bf16] {card}: training molecules/s in the epoch "
+        f"{brecords[0]['molecules_per_sec']:.1f} (loss "
+        f"{brecords[0]['loss']:.6f}, val_mae {brecords[0]['val_mae']:.6f})")
+
+    # 10c: remat, bf16 flagship and bf16 gap (dropout drawn before the
+    # checkpointed call), the first packed batch cached with float16
+    check_remat(bcfg, bbatches[0], device, "remat")
+    check_remat(gbcfg, bbatches[0], device, "remat gap", seed=11)
+    # 10d: accumulation on int8 features
+    check_accumulation(bcfg, btcfg, train_graphs, device)
+    # 10b and 10d by the training CLI, the two runs at once (nothing is
+    # timed meanwhile): the bf16 recipe on float16 features, and all four
+    # options
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        runs = [pool.submit(cli_run, tag, extra, len(train_graphs))
+                for tag, extra in (
+                    ("bf16 cli train", ["--compute-dtype", "bfloat16",
+                                        "--feat-dtype", "float16"]),
+                    ("remat accum cli train", [
+                        "--compute-dtype", "bfloat16", "--feat-dtype",
+                        "int8", "--remat", "--accum-steps", "2"]))]
+        (work_b, _, saved_b), (work_r, _, saved_r) = [r.result()
+                                                      for r in runs]
+    if (saved_b["model"]["compute_dtype"] != "bfloat16"
+            or (saved_r["model"]["remat"], saved_r["train"]["accum_steps"])
+            != (True, 2)):
+        raise AssertionError(f"cli train: {saved_b}, {saved_r}")
+
+    # 10e: a Predictor from the bf16 run serves the 256 molecules
+    bpred = Predictor.from_run(work_b, device=device)
+    reset_launch_counts()
+    serve(bpred, qm9, mcfg.conv_layers * math.ceil(len(qm9) / 32),
+          "bf16 from_run")
+    if set(per_variant(blocked_attention.by_variant)) != {"bf16:plain"}:
+        raise AssertionError("bf16 from_run: launches "
+                             f"{dict(blocked_attention.by_variant)}")
+    rates = {}
+    for tag, p in (("float32", pred), ("bf16", bpred), ("bf16", bpred),
+                   ("float32", pred)):
+        rates.setdefault(tag, []).append(predict_rate(p, qm9))
+    log(f"[bf16 serve] {card}: molecules/s (256 QM9-scale, batch 32, mean "
+        "of 3 calls, in turns): bf16 " + " / ".join(
+            f"{r:.1f}" for r in rates["bf16"]) + ", float32 " + " / ".join(
+            f"{r:.1f}" for r in rates["float32"]))
+    for work in (work_b, work_r):
+        shutil.rmtree(work, ignore_errors=True)
+
+    # the bf16 instances' paths: the gap recipe in bf16 (drop), and conv_0
+    # with its attention weights (alpha; drop+alpha)
+    gap = flagship_trainer(gbcfg, gtcfg, train_graphs, device, "unused")
+    gbatches = gap.batches(gap.train_idx)
+    gstate = gap.init_state()
+    reset_launch_counts()
+    for i in range(2):
+        gstate, _ = gap.train_step(gstate, gbatches[i], i)
+    torch.cuda.synchronize()
+    drop_shapes = launch_shapes()
+    alpha_shapes = alpha_on_a_path(gbcfg, gbatches[0], device,
+                                   deterministic=True)
+    drop_alpha_shapes = alpha_on_a_path(gbcfg, gbatches[0], device)
+    counts = merge_variant_counts(bshapes, drop_shapes, alpha_shapes,
+                                  drop_alpha_shapes)
+    aid_tcfg = dataclasses.replace(tcfg, pack_mixed=False, batch_size=4)
+    aid_batch, _, aid_shapes = train_one_step(bcfg, aid_tcfg, aid, device,
+                                              "bf16 AID")
+    aid_tier = windows_of(aid_batch)[0]
+
+    # 10a: the eight bf16 instances on every tier of the first packed
+    # batch, the batch whole, the AID tier and HC=1024
+    args = batch_kernel_inputs(bbatches[0], bcfg, seed=101)
+    rows = []
+    for t, win in enumerate(windows_of(bbatches[0])):
+        recs = check_bf16_window(f"bf16 tier {t}", window_args(args, win),
+                                 bcfg, seed=110 + 10 * t, timed=True)
+        rows += bf16_window_rows(
+            f"packed tier {t}", recs, window_shape(win), counts,
+            f"packed tier {t}, {win} of the first packed batch",
+            win[3] > 40)
+    check_bf16_window("bf16 one window", args, bcfg, seed=102, timed=False)
+    aid_recs = check_bf16_window(
+        "bf16 AID tier 0", window_args(batch_kernel_inputs(
+            aid_batch, bcfg, seed=103), aid_tier), bcfg, seed=104,
+        timed=True)
+    rows += bf16_window_rows(
+        "D>40, training tier",
+        {k: v for k, v in aid_recs.items() if k.endswith("bf16:plain")},
+        window_shape(aid_tier), merge_variant_counts(aid_shapes),
+        f"bf16 AID-scale step, tier {aid_tier}", True)
+    cfg_wide = dataclasses.replace(bcfg, in_channels=1024, heads=128)
+    wide_args = batch_kernel_inputs(train_batch, cfg_wide, seed=105)
+    n_slots = wide_args[0].shape[1]
+    check_bf16_window("bf16 HC=1024", window_args(
+        wide_args, (0, 128, n_slots, n_slots)), cfg_wide, seed=106,
+        timed=False)
+    for name in sorted({r["name"].split(",")[0] for r in rows
+                        if "packed tier" in r["name"]}):
+        sel = [r for r in rows if r["name"].startswith(name + ", packed")]
+        log(f"[bf16] {name[len('blocked_attn_'):]}) over the 8 tiers: "
+            f"{sum(r['ms'] for r in sel):.4f} ms back to back, float32 "
+            f"twin {sum(r['ms_float32'][0] for r in sel):.4f}; bound "
+            f"{sum(r['bound_ms'] for r in sel):.5f} ms; launches "
+            f"{sum(r['launches'] for r in sel)}")
+    reset_launch_counts()
+    return rows
+
 
 def main() -> int:
     import torch
@@ -1877,7 +2429,12 @@ def main() -> int:
     log(f"[phase 9] starts at {time.perf_counter() - t_start:.1f} s")
     gap_rows, _ = gap_recipe(card, device, train_graphs, aid, packed, pstate,
                              packed_records)
-    log(f"[phase 9] done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 10. bf16 storage, feature dtypes, remat, accumulation ----
+    log(f"[phase 10] starts at {time.perf_counter() - t_start:.1f} s")
+    bf16_rows = bf16_recipe(card, device, train_graphs, aid, qm9, packed,
+                            pstate, pred, train_batch)
+    log(f"[phase 10] done at {time.perf_counter() - t_start:.1f} s")
 
     fwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_fwd.cu"
     bwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_bwd.cu"
@@ -1938,7 +2495,7 @@ def main() -> int:
          "source": bwd_src, "replaces": f"{PALLAS}:271",
          "launches": packed_counts["reduce"],
          "window": f"partials of packed tier {win}", **red})
-    kernels += gap_rows
+    kernels += gap_rows + bf16_rows
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise AssertionError(f"rows not launched on their path: {idle}")

@@ -83,7 +83,7 @@ def test_pad_graphs_matches_reference(quantize):
     got = pad_graphs(graphs[:4], budgets, n_graph=5)
     for f in dataclasses.fields(got):
         x = getattr(got, f.name)
-        if f.name in STATIC_FIELDS:
+        if f.name in STATIC_FIELDS or x is None:  # None: edge_feat_scale
             assert x == getattr(ref, f.name), f.name
             continue
         y = np.asarray(getattr(ref, f.name))

@@ -113,3 +113,190 @@ def test_run_io_entry_points_default_to_the_card(tmp_path):
             call()
     assert Predictor.from_run(str(tmp_path), device="cpu").device.type == \
         "cpu"
+
+
+# ---- every configuration field is honoured or refused -----------------------
+#
+# A field of the port's ModelConfig or TrainConfig that a run's args.json
+# sets must change what the port does, or raise NotImplementedError naming
+# its ROADMAP item: a field that is read and ignored fails here. Each field
+# has a probe that sets one non-default value the reference honours and
+# compares what the port does with it against a base run.
+
+# read for compatibility with the reference's args.json, which records them:
+# the port always runs the kernel formulation (use_pallas), plans its own
+# budgets (pad_*), and, as the reference, trains with smooth L1 and
+# evaluates on the EMA weights (loss, eval_on_ema are read by neither)
+COMPAT_ONLY = {"use_pallas", "pad_nodes", "pad_edges", "pad_triplets",
+               "loss", "eval_on_ema"}
+
+GUARD_MODEL = dict(conv_layers=1, in_channels=32, embedding_size=32,
+                   heads=4, sbf_dim=7, rbf_dim=6, edge_feat_dim=8,
+                   attention_layout="blocked")
+
+# ModelConfig field -> (value, how the probe observes it)
+MODEL_PROBES = {
+    "conv_layers": (2, "predict"), "sbf_dim": (5, "predict"),
+    "rbf_dim": (4, "predict"), "in_channels": (64, "predict"),
+    "embedding_size": (16, "predict"), "heads": (8, "predict"),
+    "cutoff": (4.0, "predict"), "envelope_exponent": (6, "predict"),
+    "edge_feat_dim": (6, "predict"), "readout": ("molwise_add", "predict"),
+    "mlp_depth": (2, "predict"), "compute_dtype": ("bfloat16", "predict"),
+    "dropout": (0.3, "train forward"),
+    "remat": (True, "attention forwards in a backward"),
+    "beta": (True, "refused"), "param_dtype": ("bfloat16", "refused"),
+    "attention_layout": ("padded", "refused"), "variant": ("v2", "refused"),
+}
+
+GUARD_TRAIN = dict(batch_size=4, max_epoch=2, ckpt_after_epoch=5)
+# TrainConfig field -> (value, base run's own settings): the probe is a
+# short Trainer.fit, observed through its metrics, files, state and
+# parameters; `target` through the training CLI, which picks the readout
+TRAIN_PROBES = {
+    "target": (4, None), "batch_size": (3, {}), "random_seed": (7, {}),
+    "division": ((3, 6), {}), "max_epoch": (3, {}), "max_lr": (5e-3, {}),
+    "scheduler": ("plateau", {}), "warmup_steps": (1, {}),
+    "decay_steps": (1, {}), "decay_rate": (0.5, {}),
+    # the plateau's scale with frozen weights (max_lr 0): a worse-or-equal
+    # val MAE every epoch
+    "reduce_factor": (0.5, dict(scheduler="plateau", patience=0,
+                                max_lr=0.0)),
+    "patience": (1, dict(scheduler="plateau", patience=0, max_lr=0.0)),
+    "grad_clip": (False, dict(max_grad=1e-3)), "max_grad": (1e-3, {}),
+    "ema_decay": (0.5, {}), "accum_steps": (2, {}),
+    "ckpt_after_epoch": (0, {}), "ckpt_every": (1, {}),
+    "bucket_shapes": (2, {}), "pack_budget": (True, dict(bucket_shapes=1)),
+    "pack_mixed": (True, {}), "fused_update": (True, {}),
+}
+
+
+def _guard_graphs(cfg, n=12):
+    from x2gnn_tpu_torch.data.synthetic import synthetic_dataset
+    return synthetic_dataset(n, mean_atoms=6, seed=5, cutoff=cfg.cutoff,
+                             edge_feat_dim=cfg.edge_feat_dim)
+
+
+def _model_observation(cfg, how):
+    from x2gnn_tpu_torch.data.batching import pad_budget_for, pad_graphs
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    from x2gnn_tpu_torch.ops import blocked_attn
+    graphs = _guard_graphs(cfg, 4)
+    batch = pad_graphs(graphs, pad_budget_for(graphs, 4)).to("cpu")
+    model = X2GNN(cfg, torch.Generator().manual_seed(0), device="cpu")
+    if how == "predict":
+        with torch.no_grad():
+            return model(batch).numpy()
+    if how == "train forward":
+        with torch.no_grad():
+            return model(batch, deterministic=False,
+                         generator=torch.Generator().manual_seed(1)).numpy()
+    calls = []
+    real = blocked_attn.blocked_attention_fwd
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(blocked_attn, "blocked_attention_fwd", counted)
+        pred = model(batch)
+        torch.autograd.grad(pred.sum(), list(model.parameters()))
+    return len(calls)
+
+
+@pytest.mark.parametrize("field", [
+    f.name for f in __import__("dataclasses").fields(
+        __import__("x2gnn_tpu_torch.config", fromlist=["ModelConfig"])
+        .ModelConfig)])
+def test_every_model_config_field_is_honoured_or_refused(field):
+    import dataclasses
+    import numpy as np
+    from x2gnn_tpu_torch.config import ModelConfig
+    if field in COMPAT_ONLY:
+        return
+    assert field in MODEL_PROBES, f"no probe for ModelConfig.{field}"
+    value, how = MODEL_PROBES[field]
+    base = ModelConfig(**GUARD_MODEL)
+    assert getattr(base, field) != value
+    changed = dataclasses.replace(base, **{field: value})
+    if how == "refused":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _model_observation(changed, "predict")
+        return
+    got = _model_observation(changed, how)
+    ref = _model_observation(base, how)
+    assert not np.array_equal(got, ref), f"ModelConfig.{field}={value!r} " \
+        "changes nothing"
+
+
+def _train_observation(tcfg, workdir):
+    """What a short run shows: its metrics but the wall clock's, its
+    files, the number of parameter tensors the optimizer holds and the
+    final parameters."""
+    import json
+    import os
+    import numpy as np
+    from x2gnn_tpu_torch.config import ModelConfig
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    from x2gnn_tpu_torch.train.trainer import Trainer
+    cfg = ModelConfig(**GUARD_MODEL)
+    graphs = _guard_graphs(cfg)
+    model = X2GNN(cfg, torch.Generator().manual_seed(0), device="cpu")
+    trainer = Trainer(model, cfg, tcfg, graphs,
+                      np.array([g.y[0] for g in graphs], np.float32),
+                      workdir=str(workdir), device="cpu")
+    state, _ = trainer.fit()
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        records = [{k: v for k, v in json.loads(line).items()
+                    if k != "seconds" and not k.endswith("_per_sec")}
+                   for line in f]
+    params = np.concatenate([p.detach().numpy().reshape(-1)
+                             for p in model.parameters()])
+    return (records, sorted(os.listdir(workdir)), len(state.params),
+            params.tobytes())
+
+
+def _cli_readout(tmp_path, name, train):
+    import json
+    from x2gnn_tpu_torch.config import load_configs
+    from x2gnn_tpu_torch.train.__main__ import main
+    config = tmp_path / f"{name}.json"
+    config.write_text(json.dumps({"model": GUARD_MODEL, "train": train}))
+    workdir = tmp_path / name
+    assert main(["--device", "cpu", "--synthetic", "8", "--epochs", "1",
+                 "--config", str(config), "--workdir", str(workdir)]) == 0
+    return load_configs(str(workdir / "args.json"))[0].readout
+
+
+@pytest.mark.parametrize("field", [
+    f.name for f in __import__("dataclasses").fields(
+        __import__("x2gnn_tpu_torch.config", fromlist=["TrainConfig"])
+        .TrainConfig)])
+def test_every_train_config_field_is_honoured_or_refused(field, tmp_path):
+    import dataclasses
+    from x2gnn_tpu_torch.config import TrainConfig
+    if field in COMPAT_ONLY:
+        return
+    assert field in TRAIN_PROBES, f"no probe for TrainConfig.{field}"
+    value, own = TRAIN_PROBES[field]
+    if own is None:    # read by the CLI: the target picks the readout
+        base = _cli_readout(tmp_path, "base", GUARD_TRAIN)
+        got = _cli_readout(tmp_path, "changed", {**GUARD_TRAIN,
+                                                 field: value})
+        assert got != base, f"TrainConfig.{field}={value!r} changes nothing"
+        return
+    base = TrainConfig(**{**GUARD_TRAIN, **own})
+    assert getattr(base, field) != value
+    changed = dataclasses.replace(base, **{field: value})
+    got = _train_observation(changed, tmp_path / "changed")
+    ref = _train_observation(base, tmp_path / "base")
+    assert got != ref, f"TrainConfig.{field}={value!r} changes nothing"
+
+
+def test_the_probes_name_real_fields():
+    import dataclasses
+    from x2gnn_tpu_torch.config import ModelConfig, TrainConfig
+    model = {f.name for f in dataclasses.fields(ModelConfig)}
+    train = {f.name for f in dataclasses.fields(TrainConfig)}
+    assert set(MODEL_PROBES) | (COMPAT_ONLY & model) == model
+    assert set(TRAIN_PROBES) | (COMPAT_ONLY & train) == train

@@ -153,9 +153,9 @@ def test_load_run_configs_reads_a_reference_config_json(tmp_path):
 
 @pytest.mark.parametrize("field,value", [
     ("attention_layout", "segment"), ("variant", "v2"),
-    ("param_dtype", "bfloat16"), ("compute_dtype", "bfloat16"),
+    ("param_dtype", "bfloat16"), ("compute_dtype", "float16"),
     ("attention_layout", "padded"), ("beta", True)])
 def test_unported_options_raise(field, value):
     cfg = dataclasses.replace(ModelConfig(**SMALL), **{field: value})
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
         X2GNN(cfg, device="cpu")

@@ -458,9 +458,12 @@ def test_cli_resumes_from_a_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    dict(accum_steps=2), dict(mesh=object()), dict(edge_partition="ring"),
-    dict(feat_dtype="float16")])
+    dict(accum_steps=2, mesh=object()), dict(mesh=object()),
+    dict(edge_partition="ring"),
+    dict(feat_dtype="float16", edge_partition="ring")])
 def test_trainer_refuses_unported_options(change):
+    """The parallel paths (ROADMAP A10) stay refused, also beside the
+    options ported since (accum_steps, feat_dtype)."""
     graphs = _graphs(4, seed=24)
     targets = np.zeros(4, np.float32)
     train = {k: v for k, v in change.items() if k == "accum_steps"}

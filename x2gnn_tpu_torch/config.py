@@ -50,8 +50,10 @@ class ModelConfig:
 class TrainConfig:
     """Optimization hyperparameters (x2gnn_tpu/config.py:76-153; the
     reference's config.json:11-30, train_ema.py:40-53, trainer.py:22-48).
-    The port raises NotImplementedError on accum_steps > 1, which it does
-    not run yet."""
+    `loss` and `eval_on_ema` are read for compatibility with the
+    reference's args.json, which records them and reads neither (the loss
+    is smooth L1 and evaluation runs on the EMA weights in both
+    packages)."""
 
     target: int = 7                       # QM9 property index (7 = U0)
     batch_size: int = 32

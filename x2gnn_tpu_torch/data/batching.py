@@ -82,14 +82,18 @@ class GraphBatch:
     n_hi: int = 0              # two-tier split: rows >= n_hi have
     d_lo: int = 0              # degree <= d_lo (0 = off)
     tiers: tuple = ()          # ((end_row, di, dk), ...); () = off
+    # (E,) float32 per-edge scale of int8 edge_feat (the Trainer's
+    # feat_dtype="int8"), None otherwise (x2gnn_tpu/data/batching.py:108)
+    edge_feat_scale: Optional[np.ndarray] = None
 
     def to(self, device) -> "GraphBatch":
         """The batch as torch tensors on `device`; index arrays become
-        int64 (torch's index type). The static fields stay as they are."""
+        int64 (torch's index type). The static fields, and a None
+        edge_feat_scale, stay as they are."""
         out = {}
         for f in fields(self):
             a = getattr(self, f.name)
-            if f.name not in STATIC_FIELDS:
+            if f.name not in STATIC_FIELDS and a is not None:
                 a = np.asarray(a)
                 if a.dtype == np.int32:
                     a = a.astype(np.int64)

@@ -1,11 +1,17 @@
 """X2GNN in the atom-blocked layout (x2gnn_tpu/models/x2gnn.py).
 
-The port covers attention_layout='blocked', variant 'v1', float32, the
-atom-wise and both molecule-wise readouts and attention dropout (the
-flagship and the gap recipe), on the fused-kernel formulation of the
-reference (`z` = clip(cos/norm) and masked atom-id tables, the kernel
-computes the Legendre harmonics) on every device. Anything else raises
-NotImplementedError until its slice.
+The port covers attention_layout='blocked', variant 'v1', float32
+parameters with a float32 or bfloat16 conv stack (`compute_dtype`), the
+atom-wise and both molecule-wise readouts, attention dropout and `remat`
+(the flagship and the gap recipe with the reference's precision and memory
+options), on the fused-kernel formulation of the reference (`z` =
+clip(cos/norm) and masked atom-id tables, the kernel computes the Legendre
+harmonics) on every device. Anything else raises NotImplementedError until
+its slice.
+
+Edge features may arrive float16, or int8 with per-edge scales
+(`GraphBatch.edge_feat_scale`): they are upcast to float32 at entry and
+dequantized (x2gnn_tpu/models/x2gnn.py:78-95).
 
 A batch's degree tiers or two-tier split (`GraphBatch.tiers`, `n_hi`,
 `d_lo`) choose the attention windows of every conv, one kernel call each
@@ -19,6 +25,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from x2gnn_tpu_torch.config import ModelConfig
@@ -29,6 +36,7 @@ from x2gnn_tpu_torch.nn.layers import (
     Dense, EmbeddingBlock, RadialBasisLayer, ResidualLayer)
 from x2gnn_tpu_torch.nn.norm import GraphLayerNorm
 from x2gnn_tpu_torch.nn.readout import AtomWiseReadout, MolWiseReadout
+from x2gnn_tpu_torch.ops import attention as attention_ops
 from x2gnn_tpu_torch.ops.attention import injective_gather, inverse_slots
 from x2gnn_tpu_torch.ops.basis import poly_envelope, sbf_radial_part
 from x2gnn_tpu_torch.ops.segment import segment_sum
@@ -126,6 +134,8 @@ def blocked_geometry(batch: GraphBatch, cfg: ModelConfig) -> BlockedGeometry:
 
 
 READOUTS = ("atomwise", "molwise_mean", "molwise_add")
+# ModelConfig.compute_dtype -> the convs' computation dtype (None: float32)
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 def _check_config(cfg: ModelConfig) -> None:
@@ -133,13 +143,14 @@ def _check_config(cfg: ModelConfig) -> None:
         "attention_layout": (cfg.attention_layout, ("blocked",)),
         "variant": (cfg.variant, ("v1",)),
         "readout": (cfg.readout, READOUTS),
-        "compute_dtype": (cfg.compute_dtype, ("float32",)),
+        "compute_dtype": (cfg.compute_dtype, tuple(COMPUTE_DTYPES)),
         "param_dtype": (cfg.param_dtype, ("float32",)),
     }
     for name, (got, want) in unsupported.items():
         if got not in want:
             raise NotImplementedError(
-                f"{name}={got!r} is not ported yet (only {want})")
+                f"{name}={got!r} is not ported yet (only {want}; ROADMAP "
+                "A8b)")
 
 
 class X2GNN(nn.Module):
@@ -150,7 +161,16 @@ class X2GNN(nn.Module):
     'dropout' rng stream); `dropout_masks`, one (N, D, D, H) mask per conv,
     replaces the draws (tests and the card-vs-CPU check). The default,
     deterministic=True, never drops: serving, evaluation and the Trainer's
-    eval step."""
+    eval step.
+
+    `compute_dtype="bfloat16"` runs the convs' projections in bf16 and the
+    attention kernels in bf16 storage; a conv's output is float32 (the
+    kernels' output plus the float32 skip), as the reference casts it
+    (x2gnn_tpu/models/x2gnn.py:228-273). `remat` recomputes each conv in
+    the backward (torch.utils.checkpoint, non-reentrant) instead of keeping
+    its activations; the checkpoint replays only the default generators,
+    so with dropout the model draws each conv's mask before the
+    checkpointed call and hands it in, and the recompute uses that mask."""
 
     def __init__(self, config: ModelConfig,
                  generator: Optional[torch.Generator] = None,
@@ -181,7 +201,8 @@ class X2GNN(nn.Module):
             self.add_module(f"conv_{i}", BlockedEdgeAttentionConv(
                 ch, cfg.heads, sbf_l=cfg.sbf_dim, sbf_k=cfg.rbf_dim,
                 rbf_dim=cfg.rbf_dim, emb_dim=emb, dropout=cfg.dropout,
-                use_beta=cfg.beta, generator=g))
+                use_beta=cfg.beta, generator=g,
+                dtype=COMPUTE_DTYPES[cfg.compute_dtype]))
             self.add_module(f"norm_{i}", GraphLayerNorm())
             self.add_module(f"bf_skip_{i}", ResidualLayer(ch, generator=g))
             self.add_module(f"dense_bf_skip_{i}",
@@ -209,9 +230,16 @@ class X2GNN(nn.Module):
         src_flat = geo.in_src.reshape(-1)
         gid_flat = batch.edge_gid[batch.in_edges].reshape(-1)
 
-        # ---- featurization (x2gnn.py:104-126) ----
+        # ---- featurization (x2gnn.py:78-126): float16 or int8 features
+        # are gathered as they are, then upcast (and int8 dequantized by
+        # its per-edge scale); all math runs float32 ----
         edge_feat = injective_gather(batch.edge_feat, batch.in_edges,
                                      batch.edge_inpos, batch.edge_mask)
+        edge_feat = edge_feat.float()
+        if batch.edge_feat_scale is not None:
+            edge_feat = edge_feat * injective_gather(
+                batch.edge_feat_scale.float().reshape(-1, 1),
+                batch.in_edges, batch.edge_inpos, batch.edge_mask)
         neo_x = F.silu(self.mat_trans(edge_feat * geo.env))
         neo_x = F.silu(self.emb_trans(neo_x))
         atom_emb = self.emb_block(batch.numbers)
@@ -242,14 +270,26 @@ class X2GNN(nn.Module):
         # ---- conv stack with deep supervision (x2gnn.py:228-274,312-328)
         out = neo_x.reshape(-1, cfg.in_channels)
         results = run_readout(0, out)
+        drop = cfg.dropout > 0.0 and not deterministic
         for i in range(cfg.conv_layers):
             res0 = out
-            out = self._layer(f"conv_{i}")(
-                out.reshape(N, D, cfg.in_channels), node_rbf, edge_attr,
-                geo.out2in, geo.in2out, mask_flat, geo.windows,
-                deterministic=deterministic, generator=generator,
-                dropout_mask=(None if dropout_masks is None
-                              else dropout_masks[i]))
+            conv = self._layer(f"conv_{i}")
+            mask = None if dropout_masks is None else dropout_masks[i]
+            if cfg.remat and drop and mask is None:
+                # drawn here, in layer order as the conv would draw it: the
+                # checkpoint's recompute must not draw again
+                mask = attention_ops.pair_dropout_mask(
+                    generator, cfg.dropout, N, D, cfg.heads,
+                    batch.positions.device)
+            args = (out.reshape(N, D, cfg.in_channels), node_rbf, edge_attr,
+                    geo.out2in, geo.in2out, mask_flat, geo.windows)
+            kwargs = dict(deterministic=deterministic, generator=generator,
+                          dropout_mask=mask)
+            if cfg.remat:
+                out = torch.utils.checkpoint.checkpoint(
+                    conv, *args, use_reentrant=False, **kwargs)
+            else:
+                out = conv(*args, **kwargs)
             out = out.reshape(-1, cfg.in_channels)
             out = self._layer(f"norm_{i}")(out, gid_flat, num_graphs,
                                            mask=mask_flat)

@@ -19,6 +19,14 @@ explicit `dropout_mask` replaces the draw (the tests and the card-vs-CPU
 check hand both sides the same one). `return_attention_weights` also
 returns the pre-dropout weights (N, D, D, H), each window's padded to D x D
 and the rows concatenated (:321-334).
+
+`dtype` (torch.bfloat16 for ModelConfig.compute_dtype "bfloat16"; None is
+float32) is the computation dtype of the layers the reference gives it:
+lin_rbf, lin_query, lin_edge, lin_key and lin_value (:232-270); lin_skip
+and lin_sbf stay float32. `x_blk * lin_rbf(...)` promotes to float32, so
+the injective gather runs in float32 and lin_key/lin_value cast again; q,
+k, v and e reach the kernels in bf16 storage (their per-window cuts too)
+and the attention output is float32.
 """
 
 from __future__ import annotations
@@ -53,22 +61,28 @@ class BlockedEdgeAttentionConv(nn.Module):
     def __init__(self, channels: int, heads: int = 16, sbf_l: int = 7,
                  sbf_k: int = 6, rbf_dim: int = 6, emb_dim: int = 128,
                  dropout: float = 0.0, use_beta: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if use_beta:
-            raise NotImplementedError("the beta-gated skip is not ported yet")
+            raise NotImplementedError(
+                "the beta-gated skip is not ported yet (ROADMAP A8b)")
         self.channels, self.heads = channels, heads
         self.dropout = dropout
         self.sbf_l, self.sbf_k = sbf_l, sbf_k
         g = generator
-        self.lin_rbf = Dense(rbf_dim, channels, use_bias=False, generator=g)
+        self.lin_rbf = Dense(rbf_dim, channels, use_bias=False, generator=g,
+                             dtype=dtype)
         self.lin_rbf.flax_nested = False   # a plain nn.Dense in the reference
-        self.lin_query = TorchDense(channels, channels, generator=g)
+        self.lin_query = TorchDense(channels, channels, generator=g,
+                                    dtype=dtype)
         self.lin_edge = TorchDense(emb_dim, channels, use_bias=False,
-                                   generator=g)
+                                   generator=g, dtype=dtype)
         self.lin_sbf = LinearParams(sbf_l * sbf_k, channels, generator=g)
-        self.lin_key = TorchDense(channels, channels, generator=g)
-        self.lin_value = TorchDense(channels, channels, generator=g)
+        self.lin_key = TorchDense(channels, channels, generator=g,
+                                  dtype=dtype)
+        self.lin_value = TorchDense(channels, channels, generator=g,
+                                    dtype=dtype)
         self.lin_skip = TorchDense(channels, channels, generator=g)
 
     def forward(self, x_blk, rbf_blk, atom_edge_attr, out2in, in2out,

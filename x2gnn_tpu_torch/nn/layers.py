@@ -18,20 +18,29 @@ from x2gnn_tpu_torch.ops.basis import radial_frequencies_init
 
 
 class _Linear(nn.Module):
-    """y = x W^T + b with a torch-layout (out, in) weight."""
+    """y = x W^T + b with a torch-layout (out, in) weight. With `dtype`
+    (a computation dtype, e.g. torch.bfloat16; parameters stay float32)
+    x, the weight and the bias are cast to it, then the product and then
+    the bias add run in it, as flax's `nn.Dense(dtype=)` does
+    (x2gnn_tpu/nn/layers.py:20-60)."""
 
     # the flax counterpart nests its kernel in a `Dense_0` (the reference's
     # Dense/TorchDense wrappers); a plain flax nn.Dense sets this False
     flax_nested = True
 
-    def __init__(self, in_features: int, features: int, use_bias: bool):
+    def __init__(self, in_features: int, features: int, use_bias: bool,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
                      else None)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        if self.dtype is None:
+            return F.linear(x, self.weight, self.bias)
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class Dense(_Linear):
@@ -39,8 +48,9 @@ class Dense(_Linear):
 
     def __init__(self, in_features: int, features: int,
                  use_bias: bool = True, scale: float = 2.0,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(in_features, features, use_bias)
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, features, use_bias, dtype)
         glorot_orthogonal_(self.weight, scale, generator)
 
 
@@ -50,8 +60,9 @@ class TorchDense(_Linear):
 
     def __init__(self, in_features: int, features: int,
                  use_bias: bool = True,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(in_features, features, use_bias)
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, features, use_bias, dtype)
         torch_linear_(self.weight, self.bias, generator)
 
 

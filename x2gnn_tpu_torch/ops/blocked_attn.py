@@ -17,6 +17,9 @@ Inputs, per atom row n of the blocked layout:
     q:      (N, DI, HC) in-edge query projections
     k, v:   (N, DK, HC) out-edge key/value projections
     e_atom: (N, HC)     media-atom edge_attr projection (added to k and v)
+    (q, k, v and e_atom all float32, or all bfloat16: the reference's bf16
+    storage, widened to float32 at load with all math float32, :179-182;
+    the other float inputs are float32)
     rbf:    (N, DK, L*K) radial sbf factors of the out-edges
     w_sbf:  (L*K, HC)   lin_sbf kernel; bias (HC,) lin_sbf bias
     z:      (N, DI, DK) cos(angle) between in- and out-edge pairs
@@ -31,8 +34,10 @@ Optional, as the reference's `dropout_mask` and `return_alpha` (:446-472):
                   0 at invalid pairs, differentiable (its cotangent joins
                   the softmax's).
 Returns out (N, DI, HC) float32, or (out, alpha). Gradients flow to q, k,
-v, e_atom, w_sbf and bias; rbf, z and the mask are geometry and noise and
-get none, as in the reference (:719-724, zero cotangents).
+v, e_atom (in their storage dtype: the float32 gradients rounded once, as
+the reference casts them, :719-724), w_sbf and bias (float32); rbf, z and
+the mask are geometry and noise and get none, as in the reference (zero
+cotangents).
 """
 
 from __future__ import annotations
@@ -105,7 +110,8 @@ def blocked_attention_plain(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids,
     it materializes (N, DI, DK, HC) pair tensors, multiplies the
     unnormalized weights by the mask after the softmax and defers the
     division. Returns out, or (out, alpha) with alpha = ex * rnorm before
-    the dropout."""
+    the dropout. bf16 q, k, v and e_atom are widened to float32 first."""
+    q, k, v, e_atom = (t.float() for t in (q, k, v, e_atom))
     N, DI, HC = q.shape
     C = HC // heads
     e = e_atom[:, None, :]
@@ -129,8 +135,10 @@ def blocked_attention_bwd_plain(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids,
     de. inner(i,h) = sum_k alpha dalpha is read, as the kernel reads it,
     from the forward output: sum_{c in h} g out (`out` as the forward
     returned it, which carries the mask already), plus sum_k alpha galpha.
-    Returns (dq, dk, dv, de, dW, db) with dW (L*K, HC) the gradient of the
-    un-expanded w_sbf and db (HC,)."""
+    Returns (dq, dk, dv, de, dW, db), all float32 (bf16 q, k, v and e_atom
+    are widened first), with dW (L*K, HC) the gradient of the un-expanded
+    w_sbf and db (HC,)."""
+    q, k, v, e_atom = (t.float() for t in (q, k, v, e_atom))
     N, DI, HC = q.shape
     H, K = heads, num_radial
     C = HC // H
@@ -193,11 +201,18 @@ def _check(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids, heads,
         want["dropout_mask"] = (N, DI, DK, heads)
         got["dropout_mask"] = dropout_mask
     device = q.device
+    storage = q.dtype
+    kinds = {"q": q.dtype, "k": k.dtype, "v": v.dtype, "e_atom": e_atom.dtype}
+    if storage not in STORAGE or len(set(kinds.values())) > 1:
+        raise TypeError(f"q, k, v and e_atom must share one storage dtype "
+                        f"of {tuple(STORAGE)}, got {kinds}")
     for name, t in got.items():
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {want[name]}")
-        dtype = torch.int32 if name in ("a_ids", "b_ids") else torch.float32
+        dtype = (torch.int32 if name in ("a_ids", "b_ids") else
+                 storage if name in ("q", "k", "v", "e_atom") else
+                 torch.float32)
         if t.dtype != dtype:
             raise TypeError(f"{name} is {t.dtype}, expected {dtype}")
         if t.device != device:
@@ -227,14 +242,21 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-# the kernels' template instances, by (mask, alpha output or cotangent):
-# the launch counters' variant names and the C entry points' variant index
+# storage dtypes of q, k, v and e_atom (and of their gradients): the C entry
+# points' storage index
+STORAGE = {torch.float32: 0, torch.bfloat16: 1}
+
+# the kernels' template instances, by (mask, alpha output or cotangent) in
+# float32 storage, then the same in bf16 storage: the launch counters'
+# variant names and the C entry points' variant index
 FWD_VARIANTS = ("plain", "drop", "alpha", "drop+alpha")
 BWD_VARIANTS = ("plain", "drop", "galpha", "drop+galpha")
+FWD_VARIANTS += tuple(f"bf16:{v}" for v in FWD_VARIANTS)
+BWD_VARIANTS += tuple(f"bf16:{v}" for v in BWD_VARIANTS)
 
 
-def _variant(names, mask, alpha) -> str:
-    return names[(mask is not None) + 2 * bool(alpha)]
+def _variant(names, mask, alpha, dtype) -> str:
+    return names[(mask is not None) + 2 * bool(alpha) + 4 * STORAGE[dtype]]
 
 
 def blocked_attention_fwd(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids,
@@ -243,9 +265,10 @@ def blocked_attention_fwd(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids,
     """The forward: the CUDA kernel on CUDA tensors, laid out by
     `fwd_plan` (counted in `blocked_attention.launches`, per (N, DI, DK)
     in `blocked_attention.by_shape` and per (variant, N, DI, DK) in
-    `blocked_attention.by_variant`, the variant one of FWD_VARIANTS; `out`
-    and `alpha` from torch.empty, every slot of which the kernel writes),
-    the plain version on CPU tensors. Returns out, or (out, alpha)."""
+    `blocked_attention.by_variant`, the variant one of FWD_VARIANTS, by
+    the mask, alpha and q's storage dtype; `out` and `alpha` float32 from
+    torch.empty, every slot of which the kernel writes), the plain version
+    on CPU tensors. Returns out, or (out, alpha)."""
     if q.device.type == "cpu":
         return blocked_attention_plain(q, k, v, e_atom, rbf, w_sbf, bias, z,
                                        a_ids, b_ids, heads, num_radial,
@@ -264,11 +287,11 @@ def blocked_attention_fwd(q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), e_atom.data_ptr(),
             rbf.data_ptr(), w_sbf.data_ptr(), bias.data_ptr(), z.data_ptr(),
             a_ids.data_ptr(), b_ids.data_ptr(), _ptr(dropout_mask),
-            out.data_ptr(), _ptr(alpha),
+            out.data_ptr(), _ptr(alpha), STORAGE[q.dtype],
             N, DI, DK, heads, HC // heads, L, num_radial, plan.grid,
             plan.threads, plan.warpgroups, plan.i_chunk, plan.smem_bytes,
             stream)
-    variant = _variant(FWD_VARIANTS, dropout_mask, return_alpha)
+    variant = _variant(FWD_VARIANTS, dropout_mask, return_alpha, q.dtype)
     _raise_on(lib, err, "blocked_attn_fwd",
               f"{variant}, N={N}, DI={DI}, DK={DK}, HC={HC}, L={L}, {plan}")
     blocked_attention.launches += 1
@@ -462,9 +485,12 @@ def blocked_attention_bwd_partials(q, k, v, e_atom, rbf, w_sbf, bias, z,
     """The backward kernel alone, on CUDA tensors (counted in
     `blocked_attention_bwd_partials.launches`, per (N, DI, DK) in its
     `by_shape` and per (variant, N, DI, DK) in its `by_variant`, the
-    variant one of BWD_VARIANTS): (dq, dk, dv, de, partial),
-    with partial (bwd_plan(...).grid, (L*K+1)*HC) each CTA's share of dW
-    (row-major, L*K x HC) followed by its share of db."""
+    variant one of BWD_VARIANTS): (dq, dk, dv, de, partial), the first four
+    in q's storage dtype, with partial (bwd_plan(...).grid, (L*K+1)*HC)
+    float32 each CTA's share of dW (row-major, L*K x HC) followed by its
+    share of db. bf16 storage whose queries the plan chunks (i_chunk < DI)
+    also gets two float32 (N, DK, HC) scratch tensors, where dk and dv sum
+    over the chunks before their one rounding."""
     if q.device.type != "cuda":
         raise ValueError(f"the backward kernel runs on CUDA tensors, got "
                          f"{q.device}")
@@ -488,10 +514,15 @@ def blocked_attention_bwd_partials(q, k, v, e_atom, rbf, w_sbf, bias, z,
     plan = bwd_plan(N, DI, DK, HC, heads, L, K)
     lib = _library("blocked_attn_bwd")
     f32 = dict(dtype=torch.float32, device=q.device)
-    dq = torch.empty((N, DI, HC), **f32)
-    dk = torch.empty((N, DK, HC), **f32)
-    dv = torch.empty((N, DK, HC), **f32)
-    de = torch.empty((N, HC), **f32)
+    own = dict(dtype=q.dtype, device=q.device)
+    dq = torch.empty((N, DI, HC), **own)
+    dk = torch.empty((N, DK, HC), **own)
+    dv = torch.empty((N, DK, HC), **own)
+    de = torch.empty((N, HC), **own)
+    scratch = (None, None)
+    if q.dtype != torch.float32 and plan.i_chunk < DI:
+        scratch = (torch.empty((N, DK, HC), **f32),
+                   torch.empty((N, DK, HC), **f32))
     partial = torch.empty((plan.grid, (L * K + 1) * HC), **f32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -500,10 +531,12 @@ def blocked_attention_bwd_partials(q, k, v, e_atom, rbf, w_sbf, bias, z,
             rbf.data_ptr(), w_sbf.data_ptr(), bias.data_ptr(), z.data_ptr(),
             a_ids.data_ptr(), b_ids.data_ptr(), _ptr(dropout_mask),
             out.data_ptr(), g.data_ptr(), _ptr(galpha), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), de.data_ptr(), partial.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), de.data_ptr(), _ptr(scratch[0]),
+            _ptr(scratch[1]), partial.data_ptr(), STORAGE[q.dtype],
             N, DI, DK, heads, HC // heads, L, K, plan.grid, plan.threads,
             plan.warpgroups, plan.i_chunk, plan.smem_bytes, stream)
-    variant = _variant(BWD_VARIANTS, dropout_mask, galpha is not None)
+    variant = _variant(BWD_VARIANTS, dropout_mask, galpha is not None,
+                       q.dtype)
     _raise_on(lib, err, "blocked_attn_bwd",
               f"{variant}, N={N}, DI={DI}, DK={DK}, HC={HC}, L={L}, K={K}, "
               f"{plan}")
@@ -547,7 +580,9 @@ class _BlockedAttention(torch.autograd.Function):
     recomputes the output instead, to spare TPU memory: :235). An unused
     output's cotangent arrives as None (the reference's `_zero_ct`,
     :633-639): no alpha cotangent runs the kernel without one, no `out`
-    cotangent a zero g."""
+    cotangent a zero g. dq, dk, dv and de are returned in their primal's
+    dtype (the kernels write bf16 ones themselves; the plain version's
+    float32 ones are rounded here), as the reference does (:719-724)."""
 
     @staticmethod
     def forward(ctx, q, k, v, e_atom, rbf, w_sbf, bias, z, a_ids, b_ids,
@@ -571,6 +606,8 @@ class _BlockedAttention(torch.autograd.Function):
         dq, dk, dv, de, dw, db = blocked_attention_bwd(
             *inputs, g, ctx.heads, ctx.num_radial, out=out,
             dropout_mask=mask, galpha=galpha)
+        dq, dk, dv, de = (d.to(p.dtype) for d, p in zip((dq, dk, dv, de),
+                                                        inputs))
         # rbf, z (geometry), the ids, the mask, heads, num_radial and
         # return_alpha get none
         return (dq, dk, dv, de, None, dw, db, None, None, None, None, None,
@@ -611,13 +648,13 @@ def _library(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "blocked_attn_fwd":
-        lib.blocked_attn_fwd.argtypes = [ptr] * 13 + [i32] * 12 + [ptr]
+        lib.blocked_attn_fwd.argtypes = [ptr] * 13 + [i32] * 13 + [ptr]
         lib.blocked_attn_fwd.restype = i32
         lib.blocked_attn_fwd_occupancy.argtypes = [i32, i32, i32, ptr]
         lib.blocked_attn_fwd_occupancy.restype = i32
         lib.blocked_attn_error_string = lib.blocked_attn_fwd_error_string
     else:
-        lib.blocked_attn_bwd.argtypes = [ptr] * 19 + [i32] * 12 + [ptr]
+        lib.blocked_attn_bwd.argtypes = [ptr] * 21 + [i32] * 13 + [ptr]
         lib.blocked_attn_bwd.restype = i32
         lib.blocked_attn_bwd_occupancy.argtypes = [i32, i32, i32, ptr]
         lib.blocked_attn_bwd_occupancy.restype = i32

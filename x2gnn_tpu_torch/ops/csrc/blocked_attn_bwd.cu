@@ -1,4 +1,5 @@
-// Fused atom-blocked attention backward for Hopper (sm_90a), float32.
+// Fused atom-blocked attention backward for Hopper (sm_90a), float32 math
+// on float32 or bfloat16 storage.
 //
 // Replaces the two Pallas backward kernels of
 // x2gnn_tpu/ops/pallas/blocked_attn.py: `_bwd_kernel` (:198) and
@@ -10,7 +11,8 @@
 // with C dividing 32 (HC a multiple of 32 up to 1024), L <= kMaxL and any
 // K whose W and rbf rows fit shared memory. The branches are template
 // flags, four instances (drop, galpha) in {0,1}^2, so the instance without
-// them is the kernel measured below.
+// them is the kernel measured below; each in two storage types of q, k, v,
+// e and their gradients (float or __nv_bfloat16): eight instances.
 //
 // Forward (blocked_attn_fwd.cu), per atom n, with kk = k + e, vv = v + e:
 //   alpha(i,k,h) = softmax_k over valid pairs of q[i].kk[k] / sqrt(C)
@@ -94,6 +96,22 @@
 //   4 B per valid pair and head to the bound, and a few operations per
 //   pair and head; measured beside the instance without them by
 //   chip_smoke.py (phase 9a; PERF.md section 6).
+// - bf16 storage (ModelConfig.compute_dtype "bfloat16"): q, k, v and e are
+//   read as bfloat16 and widened to float32 where they are loaded, as the
+//   reference's kernels widen them (:221-224, :381-384); `out`, g, galpha,
+//   the mask, rbf, W and bias stay float32, and all math is float32. dq,
+//   dk, dv and de are rounded to bfloat16 once, at their store
+//   (__float2bfloat16_rn): the reference's float32 gradients cast to each
+//   primal's dtype (:719-724). Where the queries come in several chunks,
+//   dk and dv sum over the chunks in float32 scratch rows (the float
+//   instances sum in dk and dv themselves) and are rounded after the last,
+//   so a bf16 instance's gradients are the float32 instance's on the
+//   upcast inputs rounded to bfloat16, bit for bit, and its dW/db partials
+//   equal them (chip_smoke.py phase 10a). The dW/db partials and
+//   reduce_rows_kernel are float32 in both storage types. Measured on
+//   "NVIDIA H100 80GB HBM3, 700.00 W": 0.6037 ms over the 8 tiers of the
+//   packed training batch against 0.5959 for the float32 instance
+//   (+0.9% to +1.8% per tier); 128 registers, 16 B spilled (float32: 8).
 // Measured by chip_smoke.py on "NVIDIA H100 80GB HBM3, 700.00 W": 0.2676
 // ms per launch at N=760, D=32 (16.9x its 0.0158 ms bound; the first
 // design 1.5930) and 0.4801 ms at N=328, D=48 (37.0x its 0.0130 ms bound,
@@ -103,10 +121,12 @@
 // local memory per thread; the reduce 0.0032 ms on 132 x 5,504 partials,
 // partial.sum(0) 0.0050 ms.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
+#include <type_traits>
 
 namespace {
 
@@ -127,6 +147,17 @@ constexpr int kRedAcc = 4;
 
 __constant__ float kInv[kMaxL] = {0.f, 1.f, 1.f / 2, 1.f / 3,
                                   1.f / 4, 1.f / 5, 1.f / 6, 1.f / 7};
+
+// a stored value as float32, and a float32 value into storage: bf16 is
+// widened where it is loaded and rounded to nearest even where it is stored
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
 
 __device__ __forceinline__ float head_sum(float x, int C) {
   // C-lane groups are aligned inside a warp (C divides 32); the xor
@@ -187,23 +218,27 @@ __host__ __device__ inline Layout make_layout(int DI, int DK, int TB, int WG,
   return s;
 }
 
-// DROP and GALPHA are the reference's HAS_DROP and WANT_ALPHA (:198-259):
-// the forward's keep mask, and the cotangent of its alpha output. Without
-// them the instance is the kernel measured below, its registers and
-// occupancy unchanged.
-template <bool DROP, bool GALPHA>
+// T is the storage type of q, k, v, e and of dq, dk, dv, de (float or
+// __nv_bfloat16); DROP and GALPHA are the reference's HAS_DROP and
+// WANT_ALPHA (:198-259): the forward's keep mask, and the cotangent of its
+// alpha output. Without them the float instance is the kernel measured
+// below, its registers and occupancy unchanged. dk32/dv32 (N, DK, HC)
+// float32 hold dk and dv between query chunks in the bf16 instances (null
+// where IC >= DI: one chunk).
+template <typename T, bool DROP, bool GALPHA>
 __global__ void __launch_bounds__(kGroupThreads * kMaxWarpgroups, 1)
 blocked_attn_bwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ e,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ e,
     const float* __restrict__ rbf, const float* __restrict__ w,
     const float* __restrict__ bias, const float* __restrict__ z,
     const int* __restrict__ a_ids, const int* __restrict__ b_ids,
     const float* __restrict__ drop, const float* __restrict__ out,
     const float* __restrict__ g, const float* __restrict__ galpha,
-    float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
-    float* __restrict__ de, float* __restrict__ partial, int N, int DI,
-    int DK, int HC, int TB, int C, int L, int K, int IC, float rsc) {
+    T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+    T* __restrict__ de, float* __restrict__ dk32, float* __restrict__ dv32,
+    float* __restrict__ partial, int N, int DI, int DK, int HC, int TB,
+    int C, int L, int K, int IC, float rsc) {
   extern __shared__ float smem[];
   const int NT = blockDim.x;                // WG warpgroups of TB threads
   const int WG = NT / TB;
@@ -302,18 +337,18 @@ blocked_attn_bwd_kernel(
     // ---- zeros at pad slots (every slot if no pair is valid) ----
     for (int i = wg; i < DI; i += WG) {
       if (!any || !((cnt[2 + (i >> 5)] >> (i & 31)) & 1u)) {
-        dq[(static_cast<size_t>(n) * DI + i) * HC + hc] = 0.f;
+        put(dq + (static_cast<size_t>(n) * DI + i) * HC + hc, 0.f);
       }
     }
     for (int j = wg; j < DK; j += WG) {
       if (!any || !((cnt[4 + (j >> 5)] >> (j & 31)) & 1u)) {
         const size_t off = (static_cast<size_t>(n) * DK + j) * HC + hc;
-        dk[off] = 0.f;
-        dv[off] = 0.f;
+        put(dk + off, 0.f);
+        put(dv + off, 0.f);
       }
     }
     if (!any) {   // uniform over the CTA
-      if (wg == 0) de[static_cast<size_t>(n) * HC + hc] = 0.f;
+      if (wg == 0) put(de + static_cast<size_t>(n) * HC + hc, 0.f);
       continue;
     }
 
@@ -322,7 +357,7 @@ blocked_attn_bwd_kernel(
       rbf_s[t] = rbf[(static_cast<size_t>(n) * DK + kidx[jj]) * LK
                      + (t - jj * LK)];
     }
-    const float ev = e[static_cast<size_t>(n) * HC + hc];
+    const float ev = widen(e[static_cast<size_t>(n) * HC + hc]);
     float de_acc = 0.f;
     for (int i0 = 0; i0 < nI; i0 += IC) {
       const int icnt = min(IC, nI - i0);
@@ -331,7 +366,7 @@ blocked_attn_bwd_kernel(
         const size_t off =
             (static_cast<size_t>(n) * DI + qidx[i0 + ii]) * HC + hc;
         const float gi = g[off];
-        q_s[ii * TB + lt] = q[off];
+        q_s[ii * TB + lt] = widen(q[off]);
         g_s[ii * TB + lt] = gi;
         const float inner = head_sum(gi * out[off], C);
         if (c == 0) inner_s[ii * Hb + hb] = inner;
@@ -357,11 +392,14 @@ blocked_attn_bwd_kernel(
       __syncthreads();   // q_s rows staged by other warpgroups
       // ---- each pair-head score once; the keys split over warpgroups ----
       float kn = 0.f;
-      if (wg < nK) kn = k[(static_cast<size_t>(n) * DK + kidx[wg]) * HC + hc];
+      if (wg < nK) {
+        kn = widen(k[(static_cast<size_t>(n) * DK + kidx[wg]) * HC + hc]);
+      }
       for (int jj = wg; jj < nK; jj += WG) {
         const float kj = kn + ev;
         if (jj + WG < nK) {   // the warpgroup's next key, loaded early
-          kn = k[(static_cast<size_t>(n) * DK + kidx[jj + WG]) * HC + hc];
+          kn = widen(
+              k[(static_cast<size_t>(n) * DK + kidx[jj + WG]) * HC + hc]);
         }
         const int bj = kb[jj];
 #pragma unroll 4
@@ -414,16 +452,16 @@ blocked_attn_bwd_kernel(
       if (wg < nK) {
         const size_t koff =
             (static_cast<size_t>(n) * DK + kidx[wg]) * HC + hc;
-        kn = k[koff] + ev;
-        vn = v[koff] + ev;
+        kn = widen(k[koff]) + ev;
+        vn = widen(v[koff]) + ev;
       }
       for (int jj = wg; jj < nK; jj += WG) {
         const float kj = kn, vj = vn;
         if (jj + WG < nK) {   // the warpgroup's next key, loaded early
           const size_t noff =
               (static_cast<size_t>(n) * DK + kidx[jj + WG]) * HC + hc;
-          kn = k[noff] + ev;
-          vn = v[noff] + ev;
+          kn = widen(k[noff]) + ev;
+          vn = widen(v[noff]) + ev;
         }
         const size_t koff =
             (static_cast<size_t>(n) * DK + kidx[jj]) * HC + hc;
@@ -491,12 +529,27 @@ blocked_attn_bwd_kernel(
           }
           db += ds;
         }
-        if (i0 == 0) {
-          dk[koff] = dk_acc;
-          dv[koff] = dv_acc;
-        } else {   // later chunks add to what this thread wrote before
-          dk[koff] += dk_acc;
-          dv[koff] += dv_acc;
+        if constexpr (std::is_same_v<T, float>) {
+          if (i0 == 0) {
+            dk[koff] = dk_acc;
+            dv[koff] = dv_acc;
+          } else {   // later chunks add to what this thread wrote before
+            dk[koff] += dk_acc;
+            dv[koff] += dv_acc;
+          }
+        } else {   // the same float32 sums, rounded once after the last
+          float dkv = dk_acc, dvv = dv_acc;
+          if (i0 > 0) {
+            dkv = dk32[koff] + dk_acc;
+            dvv = dv32[koff] + dv_acc;
+          }
+          if (i0 + IC >= nI) {
+            put(dk + koff, dkv);
+            put(dv + koff, dvv);
+          } else {
+            dk32[koff] = dkv;
+            dv32[koff] = dvv;
+          }
         }
         de_acc += dk_acc + dv_acc;
         if (dw_regs) {
@@ -529,7 +582,8 @@ blocked_attn_bwd_kernel(
         for (int u = 1; u < WG; ++u) {
           acc += dq_all[(static_cast<size_t>(u) * IC + ii) * TB + lt];
         }
-        dq[(static_cast<size_t>(n) * DI + qidx[i0 + ii]) * HC + hc] = acc;
+        put(dq + (static_cast<size_t>(n) * DI + qidx[i0 + ii]) * HC + hc,
+            acc);
       }
       __syncthreads();   // before the next chunk overwrites the chunk area
     }
@@ -538,7 +592,7 @@ blocked_attn_bwd_kernel(
     if (wg == 0) {
       float acc = de_s[lt];
       for (int u = 1; u < WG; ++u) acc += de_s[u * TB + lt];
-      de[static_cast<size_t>(n) * HC + hc] = acc;
+      put(de + static_cast<size_t>(n) * HC + hc, acc);
     }
   }
 
@@ -658,15 +712,29 @@ bool plan_ok(int N, int DI, int DK, int HC, int C, int L, int K, int grid,
   return smem_bytes == static_cast<int>(lay.bytes) && smem_bytes <= kMaxSmem;
 }
 
-using BwdKernel = decltype(&blocked_attn_bwd_kernel<false, false>);
+// an instance as the runtime API takes it (launched by cudaLaunchKernel,
+// whose argument array does not depend on the storage type)
+template <typename T, bool DROP, bool GALPHA>
+const void* instance() {
+  return reinterpret_cast<const void*>(
+      blocked_attn_bwd_kernel<T, DROP, GALPHA>);
+}
 
-// the instance of variant 0..3: (drop, galpha) = (0,0), (1,0), (0,1), (1,1)
-BwdKernel bwd_instance(int variant) {
+// the instance of variant 0..7: (drop, galpha) = (0,0), (1,0), (0,1),
+// (1,1) in float storage, then the same four in bf16 storage
+// (ops/blocked_attn.py BWD_VARIANTS); nullptr for another value
+const void* bwd_instance(int variant) {
+  using bf16 = __nv_bfloat16;
   switch (variant) {
-    case 1: return blocked_attn_bwd_kernel<true, false>;
-    case 2: return blocked_attn_bwd_kernel<false, true>;
-    case 3: return blocked_attn_bwd_kernel<true, true>;
-    default: return blocked_attn_bwd_kernel<false, false>;
+    case 0: return instance<float, false, false>();
+    case 1: return instance<float, true, false>();
+    case 2: return instance<float, false, true>();
+    case 3: return instance<float, true, true>();
+    case 4: return instance<bf16, false, false>();
+    case 5: return instance<bf16, true, false>();
+    case 6: return instance<bf16, false, true>();
+    case 7: return instance<bf16, true, true>();
+    default: return nullptr;
   }
 }
 
@@ -675,9 +743,12 @@ BwdKernel bwd_instance(int variant) {
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for a shape or launch plan the kernel does not
-// take. All pointers are device pointers to contiguous arrays:
-// q/out/g/dq (N,DI,HC), k/v/dk/dv (N,DK,HC), e/de (N,HC), rbf (N,DK,L*K),
+// cudaErrorInvalidValue for a shape, launch plan or storage type the
+// kernel does not take. All pointers are device pointers to contiguous
+// arrays: q/out/g/dq (N,DI,HC), k/v/dk/dv (N,DK,HC), e/de (N,HC), with q,
+// k, v, e, dq, dk, dv and de float32 (storage 0) or bfloat16 (storage 1)
+// and the others float32; dk32/dv32 (N,DK,HC) float32 scratch, needed by
+// bfloat16 storage when i_chunk < DI and null otherwise; rbf (N,DK,L*K),
 // w (L*K,HC), bias (HC), z (N,DI,DK), a_ids (N,DI) int32, b_ids (N,DK)
 // int32, partial (grid, L*K+1, HC): per CTA, its dW rows then its db row;
 // drop (N,DI,DK,H), the forward's keep mask pre-scaled by 1/keep, and
@@ -685,40 +756,48 @@ extern "C" {
 // null one leaves its branch out (its own instance). The plan (grid,
 // threads, warpgroups, i_chunk, smem_bytes) is ops/blocked_attn.py's
 // bwd_plan for the shape.
-int blocked_attn_bwd(const float* q, const float* k, const float* v,
-                     const float* e, const float* rbf, const float* w,
+int blocked_attn_bwd(const void* q, const void* k, const void* v,
+                     const void* e, const float* rbf, const float* w,
                      const float* bias, const float* z, const int* a_ids,
                      const int* b_ids, const float* drop, const float* out,
-                     const float* g, const float* galpha, float* dq,
-                     float* dk, float* dv, float* de, float* partial, int N,
-                     int DI, int DK, int H, int C, int L, int K, int grid,
-                     int threads, int warpgroups, int i_chunk,
-                     int smem_bytes, void* stream) {
-  const int HC = H * C;
+                     const float* g, const float* galpha, void* dq, void* dk,
+                     void* dv, void* de, float* dk32, float* dv32,
+                     float* partial, int storage, int N, int DI, int DK,
+                     int H, int C, int L, int K, int grid, int threads,
+                     int warpgroups, int i_chunk, int smem_bytes,
+                     void* stream) {
+  int HC = H * C;
+  const bool scratch = storage == 1 && i_chunk < DI;
   if (!plan_ok(N, DI, DK, HC, C, L, K, grid, threads, warpgroups, i_chunk,
-               smem_bytes)) {
+               smem_bytes) || (storage != 0 && storage != 1) ||
+      (scratch != (dk32 != nullptr)) || (scratch != (dv32 != nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const BwdKernel kern =
-      bwd_instance((drop != nullptr) + 2 * (galpha != nullptr));
+  const void* kern = bwd_instance(
+      (drop != nullptr) + 2 * (galpha != nullptr) + 4 * storage);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<dim3(grid, HC / threads), threads * warpgroups, smem_bytes,
-         static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, e, rbf, w, bias, z, a_ids, b_ids, drop, out, g, galpha, dq,
-      dk, dv, de, partial, N, DI, DK, HC, threads, C, L, K, i_chunk,
-      static_cast<float>(1.0 / sqrt(static_cast<double>(C))));
+  float rsc = static_cast<float>(1.0 / sqrt(static_cast<double>(C)));
+  void* args[] = {&q, &k, &v, &e, &rbf, &w, &bias, &z, &a_ids, &b_ids,
+                  &drop, &out, &g, &galpha, &dq, &dk, &dv, &de, &dk32,
+                  &dv32, &partial, &N, &DI, &DK, &HC, &threads, &C, &L, &K,
+                  &i_chunk, &rsc};
+  err = cudaLaunchKernel(kern, dim3(grid, HC / threads),
+                         dim3(threads * warpgroups), args, smem_bytes,
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // info[0..3] = registers per thread, local (spill) bytes per thread, static
 // shared bytes, and resident CTAs per SM of the gradient kernel's instance
-// `variant` (0..3, as bwd_instance) at `threads` threads and `smem_bytes`
+// `variant` (0..7, as bwd_instance) at `threads` threads and `smem_bytes`
 // of dynamic shared memory.
 int blocked_attn_bwd_occupancy(int threads, int smem_bytes, int variant,
                                int* info) {
-  const BwdKernel kern = bwd_instance(variant);
+  const void* kern = bwd_instance(variant);
+  if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kern);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,4 +1,5 @@
-// Fused atom-blocked attention forward for Hopper (sm_90a), float32.
+// Fused atom-blocked attention forward for Hopper (sm_90a), float32 math
+// on float32 or bfloat16 storage.
 //
 // Replaces the two Pallas forward kernels of
 // x2gnn_tpu/ops/pallas/blocked_attn.py: `_fwd_kernel` (:166, math in
@@ -10,7 +11,8 @@
 // (HC a multiple of 32 up to 1024), L <= kMaxL and any K whose W and rbf
 // rows fit shared memory. The branches are template flags, four instances
 // (drop, alpha) in {0,1}^2, so the instance without them is the kernel
-// measured below.
+// measured below; each in two storage types of q, k, v and e (float or
+// __nv_bfloat16, the reference's bf16 storage, :179-182): eight instances.
 //
 // For one atom n (out-edges k of the atom, in-edges i):
 //   kk = k + e, vv = v + e                                  (per channel)
@@ -144,15 +146,35 @@
 // and head for each. Measured beside the instance without them by
 // chip_smoke.py (phase 9a; PERF.md section 6).
 //
+// bf16 storage. With q, k, v and e in bfloat16 (ModelConfig.compute_dtype
+// "bfloat16"), every value is widened to float32 where it is loaded and
+// all math stays float32, as the reference's kernel widens at load
+// (:179-182); rbf, W, bias, z, the mask, `out` and alpha stay float32.
+// cp.async copies only 4, 8 or 16 bytes, so the bf16 instances stage the
+// k and q rows by a plain 2-byte load, a widening and a float32 store to
+// the same shared-memory slot (`stage`): the layout, and with it fwd_plan,
+// is the float32 instances'. The v rows and e are widened in registers.
+// After the load a bf16 instance does the float32 instance's arithmetic
+// on the same values, so on bf16 inputs it equals the float32 instance on
+// their float32 upcast bit for bit (chip_smoke.py phase 10a checks it).
+// The function's live input bytes shrink by 2 B per q, k, v and e element.
+// Measured by chip_smoke.py on "NVIDIA H100 80GB HBM3, 700.00 W": the bf16
+// instance without mask or alpha takes 0.2263 ms over the 8 tiers of the
+// packed training batch against 0.2108 for the float32 one (+5.6% to
+// +9.7% per tier), 0.0816 against 0.0786 ms at the AID tier: the plain
+// loads of the staging are slower than cp.async, the halved bytes buy
+// nothing at 12-100x the byte bound; 128 registers, 16 warps per SM.
+//
 // Not in this design: tensor cores (each head's q.k is 8 deep and G is a
 // 42-deep product; float32 parity would need 3xTF32 for a latency-bound
-// kernel), bf16 storage, and handing the softmax statistics to the
-// backward.
+// kernel) and handing the softmax statistics to the backward.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
+#include <type_traits>
 
 namespace {
 
@@ -176,6 +198,24 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// a stored value as float32: bf16 storage is widened where it is loaded
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// one element of a row to shared memory as float32: cp.async for float
+// storage (no registers, completed by cp_async_wait_all), a load, a
+// widening and a store for bf16 (cp.async copies 4, 8 or 16 bytes)
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, const T* src) {
+  if constexpr (std::is_same_v<T, float>) {
+    cp_async4(dst, src);
+  } else {
+    *dst = widen(*src);
+  }
 }
 
 __constant__ float kInv[kMaxL] = {0.f, 1.f, 1.f / 2, 1.f / 3,
@@ -309,14 +349,15 @@ __device__ __forceinline__ void scores_softmax(
   }
 }
 
-// DROP and ALPHA are the reference's HAS_DROP and WANT_ALPHA (:166-195):
-// without them the instance is the kernel measured above, its registers
-// and its occupancy unchanged.
-template <bool DROP, bool ALPHA>
+// T is the storage type of q, k, v and e (float or __nv_bfloat16); DROP
+// and ALPHA are the reference's HAS_DROP and WANT_ALPHA (:166-195):
+// without them the float instance is the kernel measured above, its
+// registers and its occupancy unchanged.
+template <typename T, bool DROP, bool ALPHA>
 __global__ void __launch_bounds__(kGroupThreads * kMaxWarpgroups, 1)
 blocked_attn_fwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ e,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ e,
     const float* __restrict__ rbf, const float* __restrict__ w,
     const float* __restrict__ bias, const float* __restrict__ z,
     const int* __restrict__ a_ids, const int* __restrict__ b_ids,
@@ -457,26 +498,26 @@ blocked_attn_fwd_kernel(
                 rbf + (static_cast<size_t>(n) * DK + kidx[jj]) * LK + r);
     }
     for (int jj = wg; jj < nK; jj += WG) {
-      cp_async4(kk_s + jj * TB + lt,
-                k + (static_cast<size_t>(n) * DK + kidx[jj]) * HC + hc);
+      stage(kk_s + jj * TB + lt,
+            k + (static_cast<size_t>(n) * DK + kidx[jj]) * HC + hc);
     }
-    const float ev = e[static_cast<size_t>(n) * HC + hc];
+    const float ev = widen(e[static_cast<size_t>(n) * HC + hc]);
     // this warpgroup's keys are wg, wg + WG, ...: nKw of them
     const int nKw = nK > wg ? (nK - wg + WG - 1) / WG : 0;
     for (int i0 = 0; i0 < nI; i0 += IC) {
       const int icnt = min(IC, nI - i0);
       // ---- the chunk's q rows; this warpgroup's output partial at 0 ----
       for (int ii = wg; ii < icnt; ii += WG) {
-        cp_async4(q_s + ii * TB + lt,
-                  q + (static_cast<size_t>(n) * DI + qidx[i0 + ii]) * HC + hc);
+        stage(q_s + ii * TB + lt,
+              q + (static_cast<size_t>(n) * DI + qidx[i0 + ii]) * HC + hc);
       }
       for (int ii = 0; ii < icnt; ++ii) acc_w[ii * TB + lt] = 0.f;
       // the v rows of this warpgroup's first key tile, loaded early
       float vn[kKeyTile];
 #pragma unroll
       for (int u = 0; u < kKeyTile; ++u) {
-        vn[u] = u < nKw ? v[(static_cast<size_t>(n) * DK + kidx[wg + u * WG])
-                            * HC + hc] : 0.f;
+        vn[u] = u < nKw ? widen(v[(static_cast<size_t>(n) * DK
+                                   + kidx[wg + u * WG]) * HC + hc]) : 0.f;
       }
       // ---- pref_l P_l(z) once per pair of the chunk ----
       for (int t = tid; t < icnt * nK; t += NT) {
@@ -527,8 +568,9 @@ blocked_attn_fwd_kernel(
 #pragma unroll
         for (int u = 0; u < kKeyTile; ++u) {   // the next tile's v rows
           const int uu = u0 + kKeyTile + u;
-          vn[u] = uu < nKw ? v[(static_cast<size_t>(n) * DK
-                                + kidx[wg + uu * WG]) * HC + hc] : 0.f;
+          vn[u] = uu < nKw ? widen(v[(static_cast<size_t>(n) * DK
+                                      + kidx[wg + uu * WG]) * HC + hc])
+                           : 0.f;
         }
         // G[u][l] = sum_t rbf[key u, l*K+t] W[l*K+t, channel], t in order:
         // each W value loaded once for the tile's keys, each key's K values
@@ -634,15 +676,29 @@ bool plan_ok(int N, int DI, int DK, int HC, int C, int L, int K, int grid,
   return smem_bytes == static_cast<int>(lay.bytes) && smem_bytes <= kMaxSmem;
 }
 
-using FwdKernel = decltype(&blocked_attn_fwd_kernel<false, false>);
+// an instance as the runtime API takes it (launched by cudaLaunchKernel,
+// whose argument array does not depend on the storage type)
+template <typename T, bool DROP, bool ALPHA>
+const void* instance() {
+  return reinterpret_cast<const void*>(
+      blocked_attn_fwd_kernel<T, DROP, ALPHA>);
+}
 
-// the instance of variant 0..3: (drop, alpha) = (0,0), (1,0), (0,1), (1,1)
-FwdKernel fwd_instance(int variant) {
+// the instance of variant 0..7: (drop, alpha) = (0,0), (1,0), (0,1), (1,1)
+// in float storage, then the same four in bf16 storage (ops/blocked_attn.py
+// FWD_VARIANTS); nullptr for another value
+const void* fwd_instance(int variant) {
+  using bf16 = __nv_bfloat16;
   switch (variant) {
-    case 1: return blocked_attn_fwd_kernel<true, false>;
-    case 2: return blocked_attn_fwd_kernel<false, true>;
-    case 3: return blocked_attn_fwd_kernel<true, true>;
-    default: return blocked_attn_fwd_kernel<false, false>;
+    case 0: return instance<float, false, false>();
+    case 1: return instance<float, true, false>();
+    case 2: return instance<float, false, true>();
+    case 3: return instance<float, true, true>();
+    case 4: return instance<bf16, false, false>();
+    case 5: return instance<bf16, true, false>();
+    case 6: return instance<bf16, false, true>();
+    case 7: return instance<bf16, true, true>();
+    default: return nullptr;
   }
 }
 
@@ -651,47 +707,54 @@ FwdKernel fwd_instance(int variant) {
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for a shape or launch plan the kernel does not
-// take. All pointers are device pointers to contiguous arrays:
-// q (N,DI,HC), k/v (N,DK,HC), e (N,HC), rbf (N,DK,L*K), w (L*K,HC),
+// cudaErrorInvalidValue for a shape, launch plan or storage type the
+// kernel does not take. All pointers are device pointers to contiguous
+// arrays: q (N,DI,HC), k/v (N,DK,HC), e (N,HC), all four float32
+// (storage 0) or bfloat16 (storage 1), rbf (N,DK,L*K), w (L*K,HC),
 // bias (HC), z (N,DI,DK), a_ids (N,DI) int32, b_ids (N,DK) int32,
 // out (N,DI,HC); drop (N,DI,DK,H), the keep mask pre-scaled by 1/keep,
 // and alpha (N,DI,DK,H), the pre-dropout weights written whole, are
 // nullable: a null one leaves its branch out (its own instance). The plan
 // (grid, threads, warpgroups, i_chunk, smem_bytes) is
 // ops/blocked_attn.py's fwd_plan for the shape.
-int blocked_attn_fwd(const float* q, const float* k, const float* v,
-                     const float* e, const float* rbf, const float* w,
+int blocked_attn_fwd(const void* q, const void* k, const void* v,
+                     const void* e, const float* rbf, const float* w,
                      const float* bias, const float* z, const int* a_ids,
                      const int* b_ids, const float* drop, float* out,
-                     float* alpha, int N, int DI, int DK, int H, int C, int L,
-                     int K, int grid, int threads, int warpgroups,
-                     int i_chunk, int smem_bytes, void* stream) {
-  const int HC = H * C;
+                     float* alpha, int storage, int N, int DI, int DK, int H,
+                     int C, int L, int K, int grid, int threads,
+                     int warpgroups, int i_chunk, int smem_bytes,
+                     void* stream) {
+  int HC = H * C;
   if (!plan_ok(N, DI, DK, HC, C, L, K, grid, threads, warpgroups, i_chunk,
-               smem_bytes)) {
+               smem_bytes) || (storage != 0 && storage != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const FwdKernel kern =
-      fwd_instance((drop != nullptr) + 2 * (alpha != nullptr));
+  const void* kern = fwd_instance(
+      (drop != nullptr) + 2 * (alpha != nullptr) + 4 * storage);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<dim3(grid, HC / threads), threads * warpgroups, smem_bytes,
-         static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, e, rbf, w, bias, z, a_ids, b_ids, drop, out, alpha, N, DI, DK,
-      HC, threads, C, L, K, i_chunk,
-      static_cast<float>(1.0 / sqrt(static_cast<double>(C))));
+  float rsc = static_cast<float>(1.0 / sqrt(static_cast<double>(C)));
+  void* args[] = {&q, &k, &v, &e, &rbf, &w, &bias, &z, &a_ids, &b_ids,
+                  &drop, &out, &alpha, &N, &DI, &DK,
+                  &HC, &threads, &C, &L, &K, &i_chunk,
+                  &rsc};
+  err = cudaLaunchKernel(kern, dim3(grid, HC / threads),
+                         dim3(threads * warpgroups), args, smem_bytes,
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // info[0..3] = registers per thread, local (spill) bytes per thread, static
 // shared bytes, and resident CTAs per SM of the forward kernel's instance
-// `variant` (0..3, as fwd_instance) at `threads` threads and `smem_bytes`
+// `variant` (0..7, as fwd_instance) at `threads` threads and `smem_bytes`
 // of dynamic shared memory.
 int blocked_attn_fwd_occupancy(int threads, int smem_bytes, int variant,
                                int* info) {
-  const FwdKernel kern = fwd_instance(variant);
+  const void* kern = fwd_instance(variant);
+  if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kern);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -10,6 +10,10 @@ train.py (:168-358):
         --config runs/gap_r5_50k/args.json --pack-mixed \\
         --workdir runs/gap       # the gap recipe: molwise_mean, dropout
     python -m x2gnn_tpu_torch.train ... --auto-resume   # after a crash
+    python -m x2gnn_tpu_torch.train --config \\
+        runs/flagship_r5_regression/args.json --pack-mixed \\
+        --compute-dtype bfloat16 --feat-dtype float16 --remat \\
+        --accum-steps 2 ...          # the precision and memory options
     python -m x2gnn_tpu_torch.train --device cpu --synthetic 24 \\
         --epochs 2 --batch-size 8 --workdir /tmp/run   # on the CPU
 
@@ -26,6 +30,12 @@ its attention dropout trains with a per-step mask. --resume CKPT continues
 from a checkpoint; --auto-resume from the newest `ckpt_*.pt` of the
 workdir if there is one. A resumed run trains the epochs left,
 max_epoch - step // steps_per_epoch, and numbers them on from there.
+Precision and memory (train.py:97-135): --compute-dtype bfloat16 runs
+the conv stack in bf16 (parameters stay float32), --feat-dtype float16 or
+int8 keeps the edge features so in the device batch cache, --remat
+recomputes each conv in the backward, --accum-steps N applies the
+optimizer every N micro-batches; a --config's compute_dtype, remat and
+accum_steps hold unless a flag overrides them.
 Other flags: --target, --epochs, --batch-size, --max-lr, --scheduler,
 --warmup-steps, --ema-decay, --patience, --fused-update, --atomref-fit,
 --standardize, --ckpt-every, --ckpt-after-epoch, --bucket-shapes,
@@ -101,6 +111,22 @@ def parse_args(argv=None):
     p.add_argument("--pack-mixed", action="store_true",
                    help="mixed first-fit-decreasing packing: one batch "
                         "shape, every batch spans the size distribution")
+    p.add_argument("--accum-steps", type=int, default=None,
+                   help="gradient accumulation: apply the optimizer every "
+                        "N micro-batches (effective batch = N*batch_size)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each attention conv in the backward "
+                        "instead of keeping its activations")
+    p.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
+                   default=None,
+                   help="conv-stack compute dtype (parameters stay "
+                        "float32; bfloat16 halves the kernels' q/k/v/e "
+                        "bytes)")
+    p.add_argument("--feat-dtype", choices=["float32", "float16", "int8"],
+                   default="float32",
+                   help="edge-feature dtype in the device batch cache "
+                        "(int8 with per-edge scales); the model upcasts "
+                        "to float32 at entry")
     p.add_argument("--data-parallel", action="store_true")
     p.add_argument("--edge-partition", default=None)
     p.add_argument("--data", default=None)
@@ -145,7 +171,8 @@ def main(argv=None) -> int:
                  "bucket_shapes": args.bucket_shapes,
                  "pack_budget": True if args.pack_budget else None,
                  "pack_mixed": True if args.pack_mixed else None,
-                 "fused_update": True if args.fused_update else None}
+                 "fused_update": True if args.fused_update else None,
+                 "accum_steps": args.accum_steps}
     tcfg = dataclasses.replace(
         tcfg, **{k: v for k, v in overrides.items() if v is not None})
     # model dispatch by target family (train_ema.py:41-44)
@@ -153,6 +180,10 @@ def main(argv=None) -> int:
                else "molwise_mean")
     mcfg = dataclasses.replace(mcfg, readout=readout,
                                attention_layout="blocked")
+    if args.compute_dtype is not None:
+        mcfg = dataclasses.replace(mcfg, compute_dtype=args.compute_dtype)
+    if args.remat:
+        mcfg = dataclasses.replace(mcfg, remat=True)
 
     if args.synthetic:
         graphs = synthetic_dataset(args.synthetic, cutoff=mcfg.cutoff,
@@ -201,7 +232,8 @@ def main(argv=None) -> int:
 
     model = X2GNN(mcfg, torch.Generator().manual_seed(0), device=device)
     trainer = Trainer(model, mcfg, tcfg, graphs, targets,
-                      workdir=args.workdir, std=std, device=device)
+                      workdir=args.workdir, std=std,
+                      feat_dtype=args.feat_dtype, device=device)
     state = None
     resume_from = args.resume
     if resume_from is None and args.auto_resume:

@@ -2,7 +2,8 @@
 x2gnn_tpu/train/checkpoint.py, which writes orbax trees).
 
 A checkpoint is one file holding the parameters, the Adam state (count,
-moments, plateau scale), the EMA, the step and `bad_steps`, all as CPU
+moments, plateau scale and, with accum_steps > 1, the micro-step counter
+and the gradient mean), the EMA, the step and `bad_steps`, all as CPU
 tensors. It is written to a temporary file and renamed, so a crash never
 leaves a torn checkpoint. `Trainer.restore` resumes a run from one,
 copying its parameters into the model's live tensors. The port reads
@@ -31,7 +32,10 @@ def save_checkpoint(path: str, state) -> None:
         "opt_state": {"count": opt.count.cpu(), "mu": _cpu(opt.mu),
                       "nu": _cpu(opt.nu),
                       "plateau_scale": (None if opt.plateau_scale is None
-                                        else opt.plateau_scale.cpu())},
+                                        else opt.plateau_scale.cpu()),
+                      "mini_step": (None if opt.mini_step is None
+                                    else opt.mini_step.cpu()),
+                      "acc": None if opt.acc is None else _cpu(opt.acc)},
         "ema": {"params": _cpu(state.ema.params),
                 "count": state.ema.count.cpu()},
         "step": state.step.cpu(),
@@ -76,13 +80,22 @@ def restore_checkpoint(path: str, template=None):
     if (scale is None) != (t_opt.plateau_scale is None):
         raise ValueError("checkpoint and template disagree on the plateau "
                          "scheduler's scale")
+    acc = opt.get("acc")
+    if (acc is None) != (t_opt.acc is None):
+        raise ValueError("checkpoint and template disagree on gradient "
+                         "accumulation (accum_steps > 1)")
+    if acc is not None:
+        _check_like("gradient mean", acc, t_opt.acc)
     return template._replace(
         params=like(raw["params"], template.params),
         opt_state=t_opt._replace(
             count=opt["count"].to(t_opt.count.device),
             mu=like(opt["mu"], t_opt.mu), nu=like(opt["nu"], t_opt.nu),
             plateau_scale=(None if scale is None
-                           else scale.to(t_opt.plateau_scale.device))),
+                           else scale.to(t_opt.plateau_scale.device)),
+            mini_step=(None if acc is None
+                       else opt["mini_step"].to(t_opt.mini_step.device)),
+            acc=None if acc is None else like(acc, t_opt.acc)),
         ema=template.ema._replace(
             params=like(raw["ema"]["params"], template.ema.params),
             count=raw["ema"]["count"].to(template.ema.count.device)),

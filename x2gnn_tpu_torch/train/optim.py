@@ -18,6 +18,15 @@ jax_enable_x64, so a step needs no host synchronization.
 
 The optimizer works on a list of tensors: the model's parameters, or a
 single flat vector of all of them (`fused_update`, like optax.flatten).
+
+With accum_steps = k > 1 it has optax.MultiSteps' semantics
+(x2gnn_tpu/train/optim.py:142-146; optax/transforms/_accumulation.py): a
+running mean of the micro-batch gradients, acc + (g - acc) / (m + 1) at
+micro-step m; clip and Adam run on it, but their state (count, moments,
+so also the schedule) takes the new values only on the emitting micro-step
+m = k - 1, whose update is applied; the other micro-steps' updates are
+multiplied by 0; the mean restarts at 0 after an emission. With
+`fused_update` the mean is one flat vector.
 """
 
 from __future__ import annotations
@@ -85,6 +94,10 @@ class AdamState(NamedTuple):
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
     plateau_scale: Optional[torch.Tensor]  # float32 scalar, plateau only
+    # accum_steps > 1 only (optax.MultiSteps' mini_step and acc_grads): the
+    # micro-step counter and the running mean of the micro-batch gradients
+    mini_step: Optional[torch.Tensor] = None   # int32 scalar
+    acc: Optional[List[torch.Tensor]] = None
 
 
 def set_plateau_scale(state: AdamState, scale: float) -> AdamState:
@@ -103,13 +116,12 @@ def get_plateau_scale(state: AdamState) -> float:
 
 class Optimizer:
     """clip-by-global-norm (if cfg.grad_clip) then Adam with cfg's
-    schedule: the reference's `make_optimizer` without accum_steps."""
+    schedule, accumulated over cfg.accum_steps micro-batches: the
+    reference's `make_optimizer`."""
 
     def __init__(self, cfg: TrainConfig):
-        if cfg.accum_steps > 1:
-            raise NotImplementedError(
-                "accum_steps > 1 (gradient accumulation) is not ported yet "
-                "(ROADMAP A8b)")
+        if cfg.accum_steps < 1:
+            raise ValueError(f"accum_steps={cfg.accum_steps} < 1")
         if cfg.scheduler not in ("warmup_exp", "plateau"):
             raise ValueError(f"unknown scheduler {cfg.scheduler!r}")
         self.cfg = cfg
@@ -122,8 +134,11 @@ class Optimizer:
                  for p in params]
         scale = (torch.ones((), dtype=torch.float32, device=device)
                  if self.cfg.scheduler == "plateau" else None)
-        return AdamState(torch.zeros((), dtype=torch.int32, device=device),
-                         zeros, [z.clone() for z in zeros], scale)
+        count = torch.zeros((), dtype=torch.int32, device=device)
+        if self.cfg.accum_steps == 1:
+            return AdamState(count, zeros, [z.clone() for z in zeros], scale)
+        return AdamState(count, zeros, [z.clone() for z in zeros], scale,
+                         count.clone(), [z.clone() for z in zeros])
 
     def _step_size(self, state: AdamState) -> torch.Tensor:
         """-lr as a float32 scalar tensor for the update of `state`."""
@@ -137,7 +152,27 @@ class Optimizer:
 
     def update(self, grads: Sequence[torch.Tensor], state: AdamState):
         """(updates, new state) for `grads`; the updates are to be added
-        to the parameters. Computes new tensors throughout."""
+        to the parameters. Computes new tensors throughout; with
+        accum_steps > 1 as optax.MultiSteps does (module docstring), the
+        choice to emit made on the device."""
+        k = self.cfg.accum_steps
+        if k == 1:
+            return self._update(grads, state)
+        with torch.no_grad():
+            m = state.mini_step
+            acc = [a + (g - a) / (m + 1) for g, a in zip(grads, state.acc)]
+            updates, new = self._update(acc, state)
+            emit = m == k - 1
+            keep = ~emit
+            return [u * emit for u in updates], AdamState(
+                torch.where(emit, new.count, state.count),
+                [torch.where(emit, a, b) for a, b in zip(new.mu, state.mu)],
+                [torch.where(emit, a, b) for a, b in zip(new.nu, state.nu)],
+                state.plateau_scale, (m + 1) % k, [a * keep for a in acc])
+
+    def _update(self, grads, state: AdamState):
+        """clip and Adam on `grads`: (updates, state with the new count
+        and moments)."""
         with torch.no_grad():
             if self.cfg.grad_clip:
                 grads = clip_by_global_norm(grads, self.cfg.max_grad)
@@ -151,7 +186,7 @@ class Optimizer:
                   for g, v in zip(grads, state.nu)]
             updates = [step_size * ((m / bc1) / (torch.sqrt(v / bc2) + EPS))
                        for m, v in zip(mu, nu)]
-        return updates, AdamState(count, mu, nu, state.plateau_scale)
+        return updates, state._replace(count=count, mu=mu, nu=nu)
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -172,8 +207,10 @@ def apply_update_skip_nonfinite(state, loss: torch.Tensor,
                                 optimizer: Optimizer, ema_decay: float):
     """Optimizer and EMA update with non-finite-loss containment
     (x2gnn_tpu/train/optim.py:158-191): a NaN/inf loss leaves the
-    parameters, the optimizer state and the EMA as they were and adds one
-    to `bad_steps`; `step` advances either way. The choice is a
+    parameters, the optimizer state (with accum_steps > 1 also the
+    gradient mean and the micro-step counter: the bad micro-batch does not
+    count) and the EMA as they were and adds one to `bad_steps`; `step`
+    and, on finite micro-steps, the EMA advance on every call. The choice is a
     device-side torch.where, so no step waits for the host. The parameters
     (state.params) are updated in place; the other fields are new tensors.
     Returns (new state, loss)."""
@@ -191,6 +228,11 @@ def apply_update_skip_nonfinite(state, loss: torch.Tensor,
             [torch.where(finite, a, b) for a, b in zip(new.mu, old.mu)],
             [torch.where(finite, a, b) for a, b in zip(new.nu, old.nu)],
             old.plateau_scale)
+        if old.acc is not None:
+            opt_state = opt_state._replace(
+                mini_step=torch.where(finite, new.mini_step, old.mini_step),
+                acc=[torch.where(finite, a, b)
+                     for a, b in zip(new.acc, old.acc)])
         ema_new = ema_update(state.ema, state.params, ema_decay)
         ema = type(state.ema)(
             [torch.where(finite, a, b)

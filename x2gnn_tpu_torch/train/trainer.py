@@ -13,13 +13,19 @@ training batches are then visited in a per-(seed, epoch) shuffled order
 degree-sorted and carry degree tiers, so each conv runs one attention
 kernel per tier. Batches are cached on the device across epochs (as the
 reference does for datasets under ~20k molecules), so each is copied to
-the card once per run.
+the card once per run; with `feat_dtype` "float16" or "int8" (per-edge
+scales) the cached batches hold the edge features in that dtype
+(`cast_feat`, trainer.py:309-330), which the model upcasts at entry.
 Each step runs the model forward, autograd's backward (the attention's
 through the CUDA backward kernel), then clip, Adam and the EMA, with the
 non-finite skip decided on the device. With attention dropout, a step
 draws its masks from a generator seeded by (random_seed, step), as the
 reference folds the step into its dropout key (:244-254): a step repeats
-bit for bit, and a resumed run drops what an unbroken one drops. The
+bit for bit, and a resumed run drops what an unbroken one drops. With
+accum_steps > 1 every batch is a micro-step: the optimizer state holds the
+gradient mean and the micro-step counter (`train/optim.py`), the
+parameters move on every accum_steps-th one, and `step`, the EMA and the
+dropout masks' seeds advance on each, as in the reference. The
 parameters are updated in place; with `fused_update` they are views into
 one flat vector, which the optimizer and the EMA update as a whole. A
 state handed in from outside (`restore`, `fit(state=)`) is first copied
@@ -29,6 +35,7 @@ globally from its restored step (trainer.py:571-609).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -78,6 +85,27 @@ def make_split(n: int, seed: int, division) -> tuple:
     return perm[d1:], perm[d0:d1], perm[:d0]  # train, val, test
 
 
+FEAT_DTYPES = ("float32", "float16", "int8")
+
+
+def cast_feat(batch: GraphBatch, feat_dtype: str) -> GraphBatch:
+    """A host batch with its edge features in `feat_dtype`, as the
+    reference's `Trainer._cast_feat` (trainer.py:309-330): float16, or int8
+    by symmetric per-edge quantization, q = rint(x / s) clipped to +-127
+    with s = max|row| / 127 (1 for an all-zero row), s kept as the batch's
+    float32 `edge_feat_scale`."""
+    if feat_dtype == "float32":
+        return batch
+    x = np.asarray(batch.edge_feat, np.float32)
+    if feat_dtype == "int8":
+        amax = np.abs(x).max(axis=1)
+        scale = np.where(amax > 0, amax / 127.0, 1.0)
+        q = np.clip(np.rint(x / scale[:, None]), -127, 127)
+        return dataclasses.replace(batch, edge_feat=q.astype(np.int8),
+                                   edge_feat_scale=scale.astype(np.float32))
+    return dataclasses.replace(batch, edge_feat=x.astype(np.float16))
+
+
 def _flatten_parameters(params: Sequence[torch.nn.Parameter]) -> torch.Tensor:
     """Move the parameters into one flat vector and make each parameter a
     view of it; returns the vector."""
@@ -109,11 +137,15 @@ class Trainer:
     ):
         """`std`: MAE report calibration (trainer.py:57). `budgets`: the
         padding budgets of every fixed-budget batch, and the base of the
-        packing planners (default: `pad_budget_for` over all graphs)."""
+        packing planners (default: `pad_budget_for` over all graphs).
+        `feat_dtype`: the edge features' dtype in the cached batches, one
+        of FEAT_DTYPES (`cast_feat`)."""
+        if feat_dtype not in FEAT_DTYPES:
+            raise ValueError(f"feat_dtype must be one of {FEAT_DTYPES}, "
+                             f"got {feat_dtype!r}")
         unported = [
             (mesh is not None, "a device mesh (data parallelism)", "A10"),
             (edge_partition is not None, "edge_partition", "A10"),
-            (feat_dtype != "float32", f"feat_dtype={feat_dtype!r}", "A8b"),
         ]
         for bad, what, item in unported:
             if bad:
@@ -127,6 +159,7 @@ class Trainer:
         self.targets = np.asarray(targets, dtype=np.float32)
         self.workdir = workdir
         self.std = std
+        self.feat_dtype = feat_dtype
         self.optimizer = Optimizer(train_cfg)
 
         n = len(self.graphs)
@@ -285,8 +318,9 @@ class Trainer:
 
     def batches(self, idx) -> List[GraphBatch]:
         """The device batches of the molecules `idx`, in plan order (split
-        order for fixed budgets), made once and cached; the split's
-        real/padded totals are recorded beside them."""
+        order for fixed budgets), made once, their edge features cast to
+        `feat_dtype`, and cached; the split's real/padded totals are
+        recorded beside them."""
         key = self._cache_key(idx)
         if key not in self._batch_cache:
             idx = np.asarray(idx)
@@ -303,7 +337,8 @@ class Trainer:
                     [self.graphs[i] for i in idx], self.tcfg.batch_size,
                     budgets=self.budgets, targets=self.targets[idx])
             self._totals[key] = stats
-            self._batch_cache[key] = [b.to(self.device) for b in host]
+            self._batch_cache[key] = [
+                cast_feat(b, self.feat_dtype).to(self.device) for b in host]
         return self._batch_cache[key]
 
     def steps_per_epoch(self) -> int:
