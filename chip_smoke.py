@@ -124,6 +124,27 @@ Phases, each of which raises on failure (exit code != 0):
      AID step's DK>40 tier (timed) and HC=1024; their launches from the
      bf16 epoch, two bf16 gap steps and conv_0's attention weights with
      and without dropout.
+ 11. the host data pipeline and the profiling hooks, at the flagship's
+     full width: (a) the integral engine built by g++ from the
+     repository's source, 256 labelled molecules (`python -m
+     x2gnn_tpu_torch.data.make_synthetic --basis 6311 --gap-label
+     --mean-atoms 18`), the 4 smallest held against the numpy engine (S
+     rtol 1e-10, H rtol 1e-8), ms per molecule of both engines; (b) their
+     float64 geometry and labels as an xyz file, `python -m
+     x2gnn_tpu_torch.train --data ... --backend native6311 --pack-mixed
+     --epochs 1` as a subprocess, its features bitwise the builder's; (c)
+     one epoch in-process with cache_batches True, False and "host" from
+     the same weights, records, state and launches bitwise equal; the
+     first streamed batch bitwise its host assembly, the forward and
+     backward kernels on each of its tiers against their plain versions
+     (phase 3's tolerances, timed; the rows' launches from the `off`
+     epoch) and one step on it card vs CPU; then each mode's step (wall
+     over 5 epochs, device busy, idle share) in turns; (d)
+     Predictor.from_run of (b)'s run: predict_xyz of 64 molecules,
+     featurized again in this process, bitwise predict on load_dataset's
+     graphs; (e) the CLI on 128 molecules of (b)'s cache with
+     --cache-batches host, --profile-dir (a trace file) and
+     --check-determinism (OK).
 Each row of the kernels line takes its launches from a path that launches
 its shape, with the counts zeroed just before that path.
 The line before the last is a JSON object {"kernels": [...]}; the last
@@ -2180,6 +2201,358 @@ def bf16_recipe(card, device, train_graphs, aid, qm9, packed, pstate, pred,
     return rows
 
 
+# ---- phase 11: the host data pipeline and the profiling hooks ----
+
+PHASE11_SEED, PHASE11_MOLECULES, PHASE11_MEAN_ATOMS = 7, 256, 18
+# untraced epochs per turn of 11c's step times: one epoch is 6 steps, and
+# the host's clock spreads a 6-step mean by more than the modes differ
+WALL_EPOCHS = 5
+
+
+def _numpy_integrals(index):
+    """The numpy engine's (S, H/nelec, ao_slices) of the builder's
+    molecule `index` in 6-311+G(3df,2p) (a worker of a spawned pool), and
+    its seconds."""
+    from x2gnn_tpu_torch.data.integrals.basis import get_basis
+    from x2gnn_tpu_torch.data.integrals.md import one_electron_matrices_numpy
+    from x2gnn_tpu_torch.data.synthetic import synthetic_geometry
+    numbers, pos = synthetic_geometry(index, seed=PHASE11_SEED,
+                                      mean_atoms=PHASE11_MEAN_ATOMS)
+    t0 = time.perf_counter()
+    out = one_electron_matrices_numpy(numbers, pos,
+                                      get_basis("6-311+g(3df,2p)"))
+    return out, time.perf_counter() - t0
+
+
+def build_phase11_set(work):
+    """11a: the integral engine built from the repository's source, the
+    builder's labelled molecules (a subprocess), 4 of them held against
+    the numpy engine (S rtol 1e-10, H rtol 1e-8, as
+    tests/test_torch_port_featurize.py holds them), and the xyz file of
+    their float64 geometry and labels. Returns (graphs, xyz path, ms per
+    molecule of the builder)."""
+    import multiprocessing
+
+    import numpy as np
+    from x2gnn_tpu_torch.data.dataset import load_graph_cache
+    from x2gnn_tpu_torch.data.integrals import engine
+    from x2gnn_tpu_torch.data.integrals.basis import get_basis
+    from x2gnn_tpu_torch.data.molecule import Molecule, write_xyz
+    from x2gnn_tpu_torch.data.synthetic import synthetic_geometry
+
+    cores = os.cpu_count()
+    built = engine.build()
+    log(f"[data] integral engine: {built.seconds:.2f} s g++ -> {built.path}"
+        f" (0.00: built before on this host); {cores} host cores")
+    t0 = time.perf_counter()
+    run_cli(["x2gnn_tpu_torch.data.make_synthetic", "--n",
+             str(PHASE11_MOLECULES), "--name", "phase11", "--seed",
+             str(PHASE11_SEED), "--mean-atoms", str(PHASE11_MEAN_ATOMS),
+             "--chunk", str(PHASE11_MOLECULES), "--cache-dir",
+             os.path.join(work, "built"), "--workers", str(cores),
+             "--basis", "6311", "--gap-label"], "data builder")
+    builder_ms = (time.perf_counter() - t0) * 1e3 / PHASE11_MOLECULES
+    graphs = load_graph_cache(os.path.join(work, "built", "phase11.npz"))
+    sizes = [g.num_atoms for g in graphs]
+    log(f"[data] builder: {len(graphs)} molecules of {min(sizes)}-"
+        f"{max(sizes)} atoms (mean {np.mean(sizes):.2f}), "
+        f"{sum(g.num_edges for g in graphs)} edges, {builder_ms:.3f} ms per "
+        f"molecule wall over {cores} worker processes (engine build, "
+        "process start and the cache's write included)")
+    if len(graphs) != PHASE11_MOLECULES or not all(
+            g.y.shape == (2,) and np.isfinite(g.y).all()
+            and g.edge_feat.any() for g in graphs):
+        raise AssertionError("data builder: bad molecules")
+    # the C++ engine in this process, one molecule at a time on all cores;
+    # then the numpy engine on the 4 smallest, 4 spawned processes at once
+    basis = get_basis("6-311+g(3df,2p)")
+    t0 = time.perf_counter()
+    for i in range(16):
+        numbers, pos = synthetic_geometry(i, seed=PHASE11_SEED,
+                                          mean_atoms=PHASE11_MEAN_ATOMS)
+        engine.one_electron_matrices(numbers, pos, basis)
+    cpp_ms = (time.perf_counter() - t0) * 1e3 / 16
+    smallest = sorted(range(len(graphs)), key=lambda i: sizes[i])[:4]
+    cpp, cpp_small_ms = {}, []
+    for i in smallest:
+        numbers, pos = synthetic_geometry(i, seed=PHASE11_SEED,
+                                          mean_atoms=PHASE11_MEAN_ATOMS)
+        t0 = time.perf_counter()
+        cpp[i] = engine.one_electron_matrices(numbers, pos, basis)
+        cpp_small_ms.append((time.perf_counter() - t0) * 1e3)
+    with multiprocessing.get_context("spawn").Pool(4) as pool:
+        numpy_results = pool.map(_numpy_integrals, smallest)
+    worst = [0.0, 0.0]
+    for i, ((s, h, ao), _) in zip(smallest, numpy_results):
+        cs, ch, cao = cpp[i]
+        np.testing.assert_allclose(cs, s, rtol=1e-10, atol=1e-12)
+        np.testing.assert_allclose(ch, h, rtol=1e-8, atol=1e-10)
+        np.testing.assert_array_equal(cao, ao)
+        worst = [max(worst[0], float(np.abs(cs - s).max())),
+                 max(worst[1], float(np.abs(ch - h).max()))]
+    numpy_ms = [1e3 * sec for _, sec in numpy_results]
+    log(f"[data] C++ engine {cpp_ms:.3f} ms per molecule (molecules 0-15 "
+        f"of {np.mean(sizes[:16]):.2f} atoms on average, one at a time, "
+        f"OpenMP on {cores} cores); on molecules {smallest} of "
+        f"{[sizes[i] for i in smallest]} atoms: numpy engine "
+        f"{', '.join(f'{ms:.1f}' for ms in numpy_ms)} ms (one process "
+        f"each, 4 at once), C++ "
+        f"{', '.join(f'{ms:.3f}' for ms in cpp_small_ms)} ms; C++ vs numpy "
+        f"max |dS| {worst[0]:.3e}, max |dH| {worst[1]:.3e}")
+    mols = []
+    for i, g in enumerate(graphs):
+        numbers, pos = synthetic_geometry(i, seed=PHASE11_SEED,
+                                          mean_atoms=PHASE11_MEAN_ATOMS)
+        mols.append(Molecule(numbers, pos, g.y, i))
+    xyz = os.path.join(work, "phase11.xyz")
+    write_xyz(xyz, mols)
+    return graphs, xyz, builder_ms
+
+
+def streamed_epochs(mcfg, tcfg, graphs, device, work, card):
+    """11c: one epoch of the flagship recipe with cache_batches True,
+    False and "host" from the same weights, every count zeroed just before
+    each: records (but the wall clock's), state and launches bitwise
+    equal. The first streamed batch of the `off` epoch's trainer (read
+    after its copy's event) equals the batch assembled on the host bitwise;
+    on each of its tiers the forward and backward kernels are held against
+    their plain versions at phase 3's tolerances and timed, and one step
+    on it runs on the card and on the CPU. Then each mode's step in turns
+    (cached, off, host, host, off, cached): WALL_EPOCHS untraced epochs
+    (wall ms per step of each) and one under torch.profiler (device busy
+    ms per step, idle share). Returns (turns, the kernel rows of the
+    streamed tiers)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from x2gnn_tpu_torch.data.batching import pad_graphs
+    from x2gnn_tpu_torch.data.dataset import prepare_targets
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    from x2gnn_tpu_torch.ops.blocked_attn import reset_launch_counts
+    from x2gnn_tpu_torch.profile_serving import device_rows
+    from x2gnn_tpu_torch.train.trainer import Trainer
+    from x2gnn_tpu_torch.utils.determinism import tree_bitwise_diff
+
+    targets = prepare_targets(graphs, tcfg.target)
+    runs = {}
+    for mode in (True, False, "host"):
+        model = X2GNN(mcfg, torch.Generator().manual_seed(0), device=device)
+        tr = Trainer(model, mcfg, tcfg, graphs, targets,
+                     workdir=os.path.join(work, f"cache_{mode}"),
+                     device=device, cache_batches=mode)
+        reset_launch_counts()
+        state, _ = tr.fit(epochs=1)
+        torch.cuda.synchronize()
+        counts, shapes = launch_counts(), launch_shapes()
+        records = [{k: v for k, v in r.items()
+                    if k != "seconds" and not k.endswith("_per_sec")}
+                   for r in read_records(tr.workdir)]
+        runs[mode] = (tr, state, records, counts, shapes)
+        log(f"[data cache {mode}] epoch 1: loss {records[0]['loss']:.6f} "
+            f"val_mae {records[0]['val_mae']:.6f} step {records[0]['step']}"
+            f", launches {counts}")
+    ref = runs[True]
+    for mode in (False, "host"):
+        tr, state, records, counts, shapes = runs[mode]
+        diffs = tree_bitwise_diff(ref[1], state)
+        if (records != ref[2] or diffs or counts != ref[3]
+                or shapes != ref[4]):
+            raise AssertionError(
+                f"cache_batches={mode!r} differs from the cached epoch: "
+                f"records equal {records == ref[2]}, launches {counts} vs "
+                f"{ref[3]}, per shape equal {shapes == ref[4]}, state "
+                f"{diffs[:4]}")
+        log(f"[data cache {mode}] records, state and launches per shape "
+            "bitwise those of the cached epoch")
+    # the first streamed batch against the host's assembly of its plan
+    # entry, then the kernels on its tiers and one step card vs CPU
+    off, off_counts, off_shapes = runs[False][0], runs[False][3], \
+        runs[False][4]
+    chunks, budgets, _ = off.plan(off.train_idx)
+    host = pad_graphs([graphs[i] for i in chunks[0]], budgets[0],
+                      n_graph=budgets[0].n_graph or tcfg.batch_size,
+                      targets=off.targets[chunks[0]])
+    streamed = off.first_batch(off.train_idx)
+    torch.cuda.synchronize()
+    want = host.to("cpu")
+    if (streamed.positions.device.type != "cuda"
+            or (streamed.tiers, streamed.n_hi, streamed.d_lo)
+            != (want.tiers, want.n_hi, want.d_lo)
+            or len(streamed.arrays()) != len(want.arrays())
+            or not all(torch.equal(a.cpu(), b) for a, b in
+                       zip(streamed.arrays(), want.arrays()))):
+        raise AssertionError("the first streamed batch differs from its "
+                             "host assembly")
+    n, d = streamed.in_edges.shape
+    log(f"[data streamed] first batch (N={n}, D={d}, "
+        f"{int(streamed.graph_mask.sum())} molecules, tiers "
+        f"{streamed.tiers}) bitwise its host assembly")
+    args = batch_kernel_inputs(streamed, mcfg, seed=60)
+    fwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_fwd.cu"
+    bwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_bwd.cu"
+    rows, reduces = [], []
+    for t, win in enumerate(windows_of(streamed)):
+        fwd, (bwd, red) = check_window(
+            f"data streamed tier {t}", window_args(args, win), mcfg,
+            seed=61 + t, fwd_timed=True, bwd_timed=True)
+        reduces.append((win, red))
+        ichunk = win[3] > 40      # the reference's i-chunked kernels
+        note = (f"streamed tier {t}, {win} of the first streamed batch "
+                "(phase 11)")
+        rows += [
+            {"name": f"blocked_attn_fwd (streamed tier {t})",
+             "route": "cuda", "source": fwd_src,
+             "replaces": f"{PALLAS}:{282 if ichunk else 166}",
+             "launches": off_shapes["fwd"].get(window_shape(win), 0),
+             "window": note, **fwd},
+            {"name": f"blocked_attn_bwd (streamed tier {t})",
+             "route": "cuda", "source": bwd_src,
+             "replaces": f"{PALLAS}:{346 if ichunk else 198}",
+             "launches": off_shapes["bwd"].get(window_shape(win), 0),
+             "window": note, **bwd}]
+        log(f"[data streamed] tier {win}: forward {fwd['ms']:.4f} ms, "
+            f"backward {bwd['ms']:.4f} ms, reduce {red['ms']:.4f} ms; "
+            f"launches in the off epoch {rows[-2]['launches']} / "
+            f"{rows[-1]['launches']}")
+    win, red = max(reduces, key=lambda r: r[0][1] - r[0][0])
+    rows.append(
+        {"name": "blocked_attn_bwd_reduce (streamed tiers)", "route": "cuda",
+         "source": bwd_src, "replaces": f"{PALLAS}:271",
+         "launches": off_counts["reduce"],
+         "window": f"partials of streamed tier {win} (phase 11)", **red})
+    del args
+    check_step_on_card_and_cpu(mcfg, None, device, tag="data card vs cpu",
+                               batch=host)
+    steps = int(ref[1].step)
+    turns, epoch = {}, 1
+    for mode in (True, False, "host", "host", False, True):
+        tr, state = runs[mode][:2]
+        walls = []
+        for _ in range(WALL_EPOCHS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = tr.run_epoch(state, epoch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3 / steps)
+            epoch += 1
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = tr.run_epoch(state, epoch)
+            torch.cuda.synchronize()
+            traced = (time.perf_counter() - t0) * 1e3 / steps
+        epoch += 1
+        busy = sum(r[0] for r in device_rows(prof)) / 1e3 / steps
+        runs[mode] = (tr, state) + runs[mode][2:]
+        wall = statistics.median(walls)
+        turns.setdefault(mode, []).append((wall, traced, busy))
+        log(f"[data cache {mode}] untraced ms per step over {WALL_EPOCHS} "
+            f"epochs: median {wall:.3f}, min {min(walls):.3f}, max "
+            f"{max(walls):.3f}; traced {traced:.3f}, device busy "
+            f"{busy:.3f} ms per step, idle share {1 - busy / traced:.3f} "
+            f"({steps} steps per epoch, {card})")
+    return turns, rows
+
+
+def data_pipeline(card, device):
+    """Phase 11: molecules to predictions through the port's own host
+    pipeline, at the flagship's full width: the builder and the integral
+    engine (11a), `python -m x2gnn_tpu_torch.train --data` (11b), the
+    Trainer's cache modes (11c), predict_xyz (11d), --profile-dir and
+    --check-determinism (11e)."""
+    import numpy as np
+    import torch
+    from x2gnn_tpu_torch.data.dataset import load_dataset
+    from x2gnn_tpu_torch.infer import Predictor
+    from x2gnn_tpu_torch.ops.blocked_attn import reset_launch_counts
+    from x2gnn_tpu_torch.profile_training import flagship_training_configs
+    from x2gnn_tpu_torch.utils.profiling import TRACE_FILE
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        t_phase = time.perf_counter()
+        built, xyz, builder_ms = build_phase11_set(work)
+        # 11b: the training CLI featurizes the xyz file (before it touches
+        # the card) and trains 1 epoch of the flagship recipe
+        cache = os.path.join(work, "processed")
+        run = os.path.join(work, "run")
+        data = ["--data", xyz, "--backend", "native6311", "--cache-dir",
+                cache]
+        t0 = time.perf_counter()
+        run_cli(["x2gnn_tpu_torch.train", "--config", FLAGSHIP_ARGS, *data,
+                 "--pack-mixed", "--epochs", "1", "--ckpt-every", "1",
+                 "--workdir", run], "data train --data")
+        cli_s = time.perf_counter() - t0
+        graphs = load_dataset(xyz, cache_dir=cache, backend="native6311")
+        if os.listdir(cache) != ["phase11_native6311_c5.npz"]:
+            raise AssertionError(f"--data cache {os.listdir(cache)}")
+        for g, b in zip(graphs, built):
+            for f in ("edge_index", "edge_feat", "numbers"):
+                if not np.array_equal(getattr(g, f), getattr(b, f)):
+                    raise AssertionError(f"--data {f} of molecule {g.index}"
+                                         " differs from the builder's")
+        (record,) = read_records(run)
+        with open(os.path.join(run, "provenance.json")) as f:
+            prov = json.load(f)
+        log(f"[data train --data] {cli_s:.1f} s for featurizing "
+            f"{len(graphs)} molecules and 1 epoch; features bitwise the "
+            f"builder's; epoch 1 loss {record['loss']:.6f} val_mae "
+            f"{record['val_mae']:.6f} step {record['step']}; provenance "
+            f"{prov}")
+        if (not math.isfinite(record["loss"]) or record["bad_steps"]
+                or prov != {"basis": "6-311+g(3df,2p)-native"}):
+            raise AssertionError(f"--data run: {record}, {prov}")
+        # 11c: the cache modes, in-process
+        mcfg, tcfg = flagship_training_configs()
+        tcfg = dataclasses.replace(tcfg, max_epoch=1)
+        turns, rows = streamed_epochs(mcfg, tcfg, graphs, device, work,
+                                      card)
+        # 11d: the run serves the first 64 molecules of the xyz file,
+        # featurized again in this process (by a spawned pool: this
+        # process holds the card)
+        pred = Predictor.from_run(run, device=device)
+        n_serve = min(64, len(graphs))
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        got = pred.predict_xyz(xyz, backend="native6311", limit=n_serve,
+                               cache_dir=os.path.join(work, "serve"))
+        torch.cuda.synchronize()
+        xyz_s = time.perf_counter() - t0
+        serve_launches = launch_counts()["fwd"]
+        want = pred.predict(graphs[:n_serve])
+        if (got.shape != (n_serve,) or not np.isfinite(got).all()
+                or not np.array_equal(got, want)):
+            raise AssertionError("predict_xyz differs from predict on "
+                                 "load_dataset's graphs")
+        log(f"[data predict_xyz] {len(got)} predictions in {xyz_s:.2f} s "
+            f"(featurizing included), {serve_launches} forward launches, "
+            "bitwise predict(load_dataset graphs)")
+        # 11e: --profile-dir traces epoch 2 and --check-determinism runs
+        # first, on 128 molecules of (b)'s cache
+        prof_dir = os.path.join(work, "profile")
+        proc = run_cli(["x2gnn_tpu_torch.train", "--config", FLAGSHIP_ARGS,
+                        "--data-npz",
+                        os.path.join(cache, "phase11_native6311_c5.npz"),
+                        "--limit", "128", "--pack-mixed", "--epochs", "2",
+                        "--cache-batches", "host", "--check-determinism",
+                        "--profile-dir", prof_dir, "--workdir",
+                        os.path.join(work, "run_profiled")],
+                       "data --profile-dir --check-determinism")
+        trace = os.path.join(prof_dir, TRACE_FILE)
+        if ("determinism check: OK" not in proc.stderr
+                or not os.path.exists(trace)):
+            raise AssertionError("--check-determinism or --profile-dir "
+                                 "failed")
+        log(f"[data --profile-dir] determinism check: OK; trace "
+            f"{os.path.getsize(trace)} bytes ({trace})")
+        log(f"[data] phase 11 took {time.perf_counter() - t_phase:.1f} s; "
+            f"builder {builder_ms:.3f} ms per molecule; step ms (untraced, "
+            "traced, busy) per mode in turns: " + "; ".join(
+                f"{mode}: {v}" for mode, v in turns.items()))
+        return rows
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2436,6 +2809,11 @@ def main() -> int:
                             pstate, pred, train_batch)
     log(f"[phase 10] done at {time.perf_counter() - t_start:.1f} s")
 
+    # ---- 11. the host data pipeline and the profiling hooks ----
+    log(f"[phase 11] starts at {time.perf_counter() - t_start:.1f} s")
+    data_rows = data_pipeline(card, device)
+    log(f"[phase 11] done at {time.perf_counter() - t_start:.1f} s")
+
     fwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_fwd.cu"
     bwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_bwd.cu"
 
@@ -2495,7 +2873,7 @@ def main() -> int:
          "source": bwd_src, "replaces": f"{PALLAS}:271",
          "launches": packed_counts["reduce"],
          "window": f"partials of packed tier {win}", **red})
-    kernels += gap_rows + bf16_rows
+    kernels += gap_rows + bf16_rows + data_rows
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise AssertionError(f"rows not launched on their path: {idle}")

@@ -2,8 +2,10 @@
 its entry points never fall back to the CPU when no card is present."""
 
 import ast
+import os
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -39,7 +41,11 @@ def test_port_imports_no_jax_nor_the_jax_package():
                    "train/__main__.py", "data/molecule.py",
                    "profile_training.py", "data/dataset.py",
                    "data/featurize.py", "evaluate.py", "infer.py",
-                   "utils/determinism.py", "utils/torch_ckpt.py"):
+                   "utils/determinism.py", "utils/torch_ckpt.py",
+                   "utils/profiling.py", "data/prefetch.py",
+                   "data/synthetic.py", "data/make_synthetic.py",
+                   "data/integrals/basis.py", "data/integrals/md.py",
+                   "data/integrals/engine.py"):
         assert f"x2gnn_tpu_torch/{module}" in scanned, module
     bad = [(str(p.relative_to(REPO)), name) for p in files
            for name in _imports(p)
@@ -300,3 +306,64 @@ def test_the_probes_name_real_fields():
     train = {f.name for f in dataclasses.fields(TrainConfig)}
     assert set(MODEL_PROBES) | (COMPAT_ONLY & model) == model
     assert set(TRAIN_PROBES) | (COMPAT_ONLY & train) == train
+
+
+# ---- the featurizing entry points are honoured, the rest refused -----------
+
+GUARD_338 = {**GUARD_MODEL, "edge_feat_dim": 338}
+
+
+def _guard_xyz(tmp_path):
+    from x2gnn_tpu_torch.data.molecule import Molecule, write_xyz
+    from x2gnn_tpu_torch.data.synthetic import synthetic_geometry
+    mols = [Molecule(*synthetic_geometry(i, seed=4, mean_atoms=5), [0.5 * i],
+                     i) for i in range(8)]
+    path = tmp_path / "guard.xyz"
+    write_xyz(str(path), mols)
+    return path, mols
+
+
+def test_featurizing_entry_points_are_honoured(tmp_path, capsys):
+    """--data (the training CLI and evaluate) and Predictor.predict_xyz /
+    predict_molecules featurize molecules, once, into the cache they
+    share."""
+    import json
+    from x2gnn_tpu_torch.evaluate import main as evaluate_main
+    from x2gnn_tpu_torch.infer import Predictor
+    from x2gnn_tpu_torch.train.__main__ import main
+    xyz, mols = _guard_xyz(tmp_path)
+    config = tmp_path / "guard.json"
+    config.write_text(json.dumps({"model": GUARD_338,
+                                  "train": {**GUARD_TRAIN, "max_epoch": 1,
+                                            "ckpt_after_epoch": 0}}))
+    cache = tmp_path / "processed"
+    common = ["--data", str(xyz), "--backend", "native", "--cache-dir",
+              str(cache), "--device", "cpu"]
+    assert main(common + ["--config", str(config), "--workdir",
+                          str(tmp_path / "run")]) == 0
+    assert sorted(os.listdir(cache)) == ["guard_native_c5.npz"]
+    capsys.readouterr()
+    assert evaluate_main(common + ["--ckpt", str(tmp_path / "run" /
+                                                 "ckpt_best.pt")]) == 0
+    assert json.loads(capsys.readouterr().out)["count"] == 8
+    pred = Predictor.from_run(str(tmp_path / "run"), device="cpu")
+    got = pred.predict_xyz(str(xyz), backend="native",
+                           cache_dir=str(cache))
+    np.testing.assert_array_equal(
+        got, pred.predict_molecules(mols, backend="native"))
+    assert got.shape == (8,) and np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--data-parallel"], "A10"), (["--edge-partition", "ring"], "A10"),
+    (["--dp-groups", "2"], "A10"), (["--layout", "padded"], "A8b")])
+def test_unported_cli_flags_stay_refused(argv, item, tmp_path):
+    from x2gnn_tpu_torch.evaluate import main as evaluate_main
+    from x2gnn_tpu_torch.train.__main__ import main
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        main(["--device", "cpu", "--synthetic", "4", "--workdir",
+              str(tmp_path), *argv])
+    if argv[0] == "--layout":
+        with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
+            evaluate_main(["--ckpt", str(tmp_path / "c.pt"), "--synthetic",
+                           "2", "--layout", "padded"])

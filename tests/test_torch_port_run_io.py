@@ -181,10 +181,13 @@ def test_from_run_matches_jax_predictor(tmp_path, jax_weights, fused):
     live = Predictor.from_run(str(tmp_path), use_ema=False, batch_size=4,
                               device="cpu").predict(graphs)
     assert not np.allclose(live, got)
-    with pytest.raises(NotImplementedError, match="A11"):
-        pred.predict_xyz("x.xyz")
-    with pytest.raises(NotImplementedError, match="A11"):
-        pred.predict_molecules([])
+    # the run's provenance.json basis: molecules featurized in another
+    # basis are refused before they are read
+    assert pred.basis == "x2sv"
+    with pytest.raises(ValueError, match="basis mismatch"):
+        pred.predict_xyz("x.xyz", backend="native6311")
+    with pytest.raises(ValueError, match="basis mismatch"):
+        pred.predict_molecules([], backend="native6311")
 
 
 def test_from_run_prefers_best_then_last(tmp_path, jax_weights):
@@ -296,8 +299,9 @@ def test_evaluate_cli_guards(capsys, tmp_path, trained_run):
     with pytest.raises(SystemExit, match=r"Z=\[16\]"):
         evaluate_main(["--ckpt", ckpt, "--data-npz", odd, "--device",
                        "cpu"])
-    with pytest.raises(NotImplementedError, match="A11"):
-        evaluate_main(["--ckpt", ckpt, "--data", "x.xyz"])
+    with pytest.raises(FileNotFoundError):
+        evaluate_main(["--ckpt", ckpt, "--data", str(tmp_path / "x.xyz"),
+                       "--cache-dir", str(tmp_path), "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="A8b"):
         evaluate_main(["--ckpt", ckpt, "--synthetic", "4", "--layout",
                        "segment"])

@@ -423,9 +423,10 @@ def test_cli_trains_on_the_cpu(tmp_path):
         assert (workdir / name).exists(), name
 
 
-@pytest.mark.parametrize("flag", ["--data-parallel", "--data=x"])
+@pytest.mark.parametrize("flag", ["--data-parallel", "--edge-partition=ring",
+                                  "--dp-groups=2", "--layout=segment"])
 def test_cli_refuses_unported_flags(flag, tmp_path):
-    item = {"--data-parallel": "A10", "--data=x": "A11"}[flag]
+    item = {"--layout=segment": "A8b"}.get(flag, "A10")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli_main(["--device", "cpu", "--synthetic", "4", flag,
                   "--workdir", str(tmp_path)])

@@ -86,20 +86,43 @@ class GraphBatch:
     # feat_dtype="int8"), None otherwise (x2gnn_tpu/data/batching.py:108)
     edge_feat_scale: Optional[np.ndarray] = None
 
-    def to(self, device) -> "GraphBatch":
-        """The batch as torch tensors on `device`; index arrays become
-        int64 (torch's index type). The static fields, and a None
-        edge_feat_scale, stay as they are."""
+    def _tensors(self, fn) -> "GraphBatch":
+        """The batch with `fn` applied to each array field as a torch
+        tensor (numpy fields converted first, int32 ones to int64); the
+        static fields, and a None edge_feat_scale, stay as they are."""
         out = {}
         for f in fields(self):
             a = getattr(self, f.name)
             if f.name not in STATIC_FIELDS and a is not None:
-                a = np.asarray(a)
-                if a.dtype == np.int32:
-                    a = a.astype(np.int64)
-                a = torch.from_numpy(a).to(device)
+                if not isinstance(a, torch.Tensor):
+                    a = np.asarray(a)
+                    if a.dtype == np.int32:
+                        a = a.astype(np.int64)
+                    a = torch.from_numpy(a)
+                a = fn(a)
             out[f.name] = a
         return GraphBatch(**out)
+
+    def to(self, device, non_blocking: bool = False) -> "GraphBatch":
+        """The batch as torch tensors on `device`; index arrays become
+        int64 (torch's index type). `non_blocking` copies a pinned batch
+        asynchronously on the current stream."""
+        return self._tensors(lambda t: t.to(device,
+                                            non_blocking=non_blocking))
+
+    def pin_memory(self) -> "GraphBatch":
+        """The batch as torch tensors (the types `to` gives) in
+        page-locked host memory, which the card copies from
+        asynchronously. Needs a CUDA build of torch."""
+        return self._tensors(lambda t: t.pin_memory())
+
+    def arrays(self) -> list:
+        """The batch's array fields (tensors once `to` or `pin_memory`
+        made them so), without the static ones and a None
+        edge_feat_scale."""
+        return [getattr(self, f.name) for f in fields(self)
+                if f.name not in STATIC_FIELDS
+                and getattr(self, f.name) is not None]
 
 
 def _atom_degrees(g: MolGraph) -> np.ndarray:

@@ -1,24 +1,107 @@
-"""Graph caches and training targets (x2gnn_tpu/data/dataset.py:55-124,
-162-178).
+"""xyz files to featurized MolGraphs, graph caches and training targets
+(x2gnn_tpu/data/dataset.py).
 
-A cache is one uncompressed npz of the molecules' ragged arrays,
-concatenated, with per-molecule counts and a featurization-basis tag. The
-port reads caches the JAX package writes and the other way round: every
-field keeps the dtype it was saved with. Featurizing xyz files into a
-cache (`featurize_molecules`, `load_dataset`) is not ported yet (ROADMAP
-A11).
+`featurize_molecules` builds each molecule's graph and integral features
+(over a process pool for the quantum backends); `load_dataset` does it
+for an xyz file once and keeps the result as a cache under `cache_dir`,
+tagged as the reference tags it (`<name>_<backend>_c<cutoff>[_n<limit>]`),
+so each package finds the other's caches. A cache is one uncompressed
+npz of the molecules' ragged arrays, concatenated, with per-molecule
+counts and a featurization-basis tag. The port reads caches the JAX
+package writes and the other way round: every field keeps the dtype it
+was saved with.
 """
 
 from __future__ import annotations
 
+import contextlib
+import multiprocessing
 import os
 from typing import List, Optional, Sequence
 
 import numpy as np
 
-from x2gnn_tpu_torch.data.graphs import MolGraph
+from x2gnn_tpu_torch.data.featurize import (
+    EDGE_FEAT_DIM, basis_provenance, edge_features, resolve_backend)
+from x2gnn_tpu_torch.data.graphs import MolGraph, build_mol_graph
 from x2gnn_tpu_torch.data.molecule import (
-    EXTENSIVE_TARGETS, atomization_target)
+    EXTENSIVE_TARGETS, Molecule, atomization_target, read_xyz,
+    read_xyz_allprop)
+
+
+def _featurize_one(args) -> MolGraph:
+    idx, numbers, positions, labels, cutoff, backend, replicate_bug = args
+    mol = Molecule(numbers, positions, labels, idx)
+    g = build_mol_graph(numbers, positions, labels, cutoff=cutoff,
+                        edge_feat_dim=EDGE_FEAT_DIM, index=idx)
+    if backend != "zero":
+        g.edge_feat[:] = edge_features(
+            mol, g.edge_index, backend=backend,
+            replicate_reference_bug=replicate_bug)
+    return g
+
+
+def _worker_threads(threads: int) -> None:
+    """Pool initializer: the integral engine's OpenMP threads in this
+    worker."""
+    from x2gnn_tpu_torch.data.integrals.engine import set_num_threads
+    set_num_threads(threads)
+
+
+# the thread counts of OpenMP and of the BLAS libraries (numpy's and
+# scipy's eigensolvers), read when a process loads them
+_THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                "MKL_NUM_THREADS")
+
+
+@contextlib.contextmanager
+def worker_pool(workers: int):
+    """A pool of `workers` processes, each running the integral engine and
+    the BLAS on its share of the host's cores (`workers` x threads never
+    oversubscribes them). The workers are spawned, not forked: a spawned
+    process reads its thread counts when it starts, and a fork of a
+    process that holds the card or runs threads can hang. The features
+    are the same either way."""
+    threads = max((os.cpu_count() or 1) // workers, 1)
+    saved = {k: os.environ.get(k) for k in _THREAD_VARS}
+    os.environ.update({k: str(threads) for k in _THREAD_VARS})
+    try:
+        pool = multiprocessing.get_context("spawn").Pool(
+            processes=workers, initializer=_worker_threads,
+            initargs=(threads,))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    with pool:
+        yield pool
+
+
+def featurize_molecules(
+    mols: Sequence[Molecule],
+    cutoff: float = 5.0,
+    backend: str = "zero",
+    num_workers: Optional[int] = None,
+    replicate_reference_bug: bool = False,
+) -> List[MolGraph]:
+    """MolGraphs (graph structure and integral features) of `mols`, in
+    order. A quantum backend fans out over `num_workers` processes (all
+    cores by default; 1 or fewer featurizes in this process), each running
+    the engine on its share of the cores."""
+    jobs = [(m.index, m.numbers, m.positions, m.labels, cutoff, backend,
+             replicate_reference_bug) for m in mols]
+    if backend == "zero" or (num_workers is not None and num_workers <= 1):
+        return [_featurize_one(j) for j in jobs]
+    if resolve_backend(backend) != "pyscf":
+        # build the engine once here, not in every worker at once
+        from x2gnn_tpu_torch.data.integrals.engine import build
+        build()
+    workers = num_workers or os.cpu_count() or 1
+    with worker_pool(workers) as pool:
+        return pool.map(_featurize_one, jobs,
+                        chunksize=max(1, min(16, len(jobs) // workers)))
 
 
 def save_graph_cache(path: str, graphs: Sequence[MolGraph],
@@ -89,6 +172,39 @@ def load_graph_cache(path: str) -> List[MolGraph]:
             y=z["y"][m],
             index=int(z["index"][m]),
         ))
+    return graphs
+
+
+def load_dataset(
+    xyz_path: str,
+    cache_dir: str = "./processed",
+    cutoff: float = 5.0,
+    backend: str = "auto",
+    multi_property: Optional[bool] = None,
+    limit: Optional[int] = None,
+    num_workers: Optional[int] = None,
+) -> List[MolGraph]:
+    """The featurized MolGraphs of an xyz file, from the cache
+    `<cache_dir>/<name>_<backend>_c<cutoff>[_n<limit>].npz` if it exists,
+    else featurized and saved there with the backend's basis tag. The
+    labels stay raw (`prepare_targets` makes training targets). The tag
+    names the resolved backend: 'auto' features differ between hosts with
+    and without pyscf."""
+    name = os.path.splitext(os.path.basename(xyz_path))[0]
+    backend = resolve_backend(backend)
+    tag = f"{name}_{backend}_c{cutoff:g}" + (f"_n{limit}" if limit else "")
+    cache = os.path.join(cache_dir, tag + ".npz")
+    if os.path.exists(cache):
+        return load_graph_cache(cache)
+    if multi_property is None:
+        mols = read_xyz(xyz_path)   # the generic reader reads both layouts
+    else:
+        mols = (read_xyz_allprop if multi_property else read_xyz)(xyz_path)
+    if limit:
+        mols = mols[:limit]
+    graphs = featurize_molecules(mols, cutoff=cutoff, backend=backend,
+                                 num_workers=num_workers)
+    save_graph_cache(cache, graphs, basis=basis_provenance(backend))
     return graphs
 
 

@@ -1,12 +1,18 @@
-"""Target helpers of x2gnn_tpu/data/molecule.py (:20-45, :159-220), numpy
-only: the QM9 property tables, the atomization targets, the MAE report
-calibration, and the least-squares per-element reference energies."""
+"""Molecules and their labels (x2gnn_tpu/data/molecule.py), numpy only:
+the `Molecule` container, the concatenated-xyz readers (:51-157), the
+QM9 property tables, the atomization targets, the MAE report calibration
+and the least-squares per-element reference energies."""
 
 from __future__ import annotations
 
-from typing import Sequence
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
 
 import numpy as np
+
+# Supported elements (reference utils.py:19 limits to H/C/N/O/F organics).
+ATOMIC_NUMBER = {"H": 1, "C": 6, "N": 7, "O": 8, "F": 9}
+ELEMENT_SYMBOL = {v: k for k, v in ATOMIC_NUMBER.items()}
 
 # QM9 property index map (reference train_ema.py:9).
 QM9_PROPERTY_NAMES = {
@@ -35,6 +41,116 @@ ATOM_REF[10] = [np.nan, -0.510927, np.nan, np.nan, np.nan, np.nan,
                 -37.861317, -54.598897, -75.079532, -99.733544]
 ATOM_REF[11] = [np.nan, 2.981, np.nan, np.nan, np.nan, np.nan,
                 2.981, 2.981, 2.981, 2.981]
+
+
+@dataclass
+class Molecule:
+    """One molecule: atomic numbers, positions (Angstrom) and labels."""
+
+    numbers: np.ndarray                 # (N,) int32 atomic numbers
+    positions: np.ndarray               # (N, 3) float64 Angstrom
+    labels: np.ndarray                  # (P,) float64 property values
+    index: int = 0
+
+    def __post_init__(self):
+        self.numbers = np.asarray(self.numbers, dtype=np.int32)
+        self.positions = np.asarray(self.positions, dtype=np.float64)
+        self.labels = np.atleast_1d(np.asarray(self.labels, dtype=np.float64))
+
+    @property
+    def num_atoms(self) -> int:
+        return int(self.numbers.shape[0])
+
+    def geometry_string(self) -> str:
+        """PySCF-style `El x y z` block, one atom per line."""
+        return "\n".join(
+            f"{ELEMENT_SYMBOL[int(z)]} {p[0]:.8f} {p[1]:.8f} {p[2]:.8f}"
+            for z, p in zip(self.numbers, self.positions)
+        )
+
+
+def _parse_concat_xyz(filename: str, n_props: Optional[int]) -> List[Molecule]:
+    """Parse a concatenated xyz stream: a line holding one int starts a
+    molecule with that many atoms; the lines before its atom block whose
+    tokens are floats are its labels (several per line, tab- or
+    space-separated; Mathematica's `*^` exponent read as `E`); then one
+    `element x y z` line per atom. `n_props`, if given, is the label count
+    every molecule must have."""
+    mols: List[Molecule] = []
+    with open(filename, "rt") as f:
+        lines = f.readlines()
+    i = 0
+    idx = 0
+    n_lines = len(lines)
+    while i < n_lines:
+        tok = lines[i].split()
+        if not tok:
+            i += 1
+            continue
+        n_atoms = int(tok[0])
+        i += 1
+        labels: List[float] = []
+        while i < n_lines:
+            tok = lines[i].split()
+            if not tok:
+                i += 1
+                continue
+            if tok[0] in ATOMIC_NUMBER:
+                break
+            labels.extend(float(t.replace("*^", "E")) for t in tok)
+            i += 1
+        numbers = np.empty(n_atoms, dtype=np.int32)
+        positions = np.empty((n_atoms, 3), dtype=np.float64)
+        for a in range(n_atoms):
+            if i >= n_lines:
+                raise ValueError(
+                    f"molecule {idx}: file truncated at atom {a}/{n_atoms} "
+                    f"(line {i})")
+            tok = lines[i].split()
+            if not tok or tok[0] not in ATOMIC_NUMBER:
+                raise ValueError(
+                    f"molecule {idx}, line {i}: unknown element "
+                    f"{tok[0] if tok else '<empty>'!r} (supported: "
+                    f"{sorted(ATOMIC_NUMBER)})")
+            numbers[a] = ATOMIC_NUMBER[tok[0]]
+            positions[a] = [float(t.replace("*^", "E")) for t in tok[1:4]]
+            i += 1
+        if n_props is not None and len(labels) != n_props:
+            raise ValueError(
+                f"molecule {idx}: expected {n_props} properties, got "
+                f"{len(labels)}")
+        mols.append(Molecule(numbers, positions, np.array(labels), idx))
+        idx += 1
+    return mols
+
+
+def read_xyz(filename: str) -> List[Molecule]:
+    """Every molecule of a concatenated xyz file, with however many labels
+    each carries (reference utils.py:17-63, without its dropped first
+    molecule)."""
+    return _parse_concat_xyz(filename, n_props=None)
+
+
+def read_xyz_allprop(filename: str) -> List[Molecule]:
+    """A QM9 xyz file with the 12 properties per molecule (mu, alpha,
+    HOMO, LUMO, gap, r2, zpve, U0, U, H, G, Cv) on the lines after each
+    atom count; a molecule with another count raises."""
+    return _parse_concat_xyz(filename, n_props=12)
+
+
+def write_xyz(filename: str, molecules: Sequence[Molecule]) -> None:
+    """Write `molecules` as one concatenated xyz file that `read_xyz`
+    reads back bitwise: per molecule its atom count, its labels on one
+    tab-joined line (none if it has none), then `element x y z` lines,
+    every float in Python's shortest round-trip form."""
+    with open(filename, "wt") as f:
+        for m in molecules:
+            f.write(f"{m.num_atoms}\n")
+            if m.labels.size:
+                f.write("\t".join(repr(float(v)) for v in m.labels) + "\n")
+            for z, p in zip(m.numbers, m.positions):
+                f.write(f"{ELEMENT_SYMBOL[int(z)]} " + " ".join(
+                    repr(float(c)) for c in p) + "\n")
 
 
 def atomization_target(

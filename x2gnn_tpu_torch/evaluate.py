@@ -4,6 +4,8 @@ data was.
 
     python -m x2gnn_tpu_torch.evaluate --ckpt runs/u0/ckpt_best.pt \\
         --data-npz cache.npz                 # on the card
+    python -m x2gnn_tpu_torch.evaluate --ckpt runs/u0/ckpt_best.pt \\
+        --data mols.xyz --backend native6311 # featurized as training does
     python -m x2gnn_tpu_torch.evaluate --ckpt runs/smoke/ckpt_best.pt \\
         --synthetic 64 --device cpu
 
@@ -17,8 +19,9 @@ data's featurization basis is held against the run's provenance.json
 weights are evaluated unless --use-live-params. Prints one JSON line
 {"mae", "count", "unit"}, and the seconds of its one (cold) pass on
 stderr.
-Featurizing an xyz file (--data) is not ported yet (ROADMAP A11), nor
-layouts other than blocked (A8b).
+--data featurizes an xyz file as the training CLI does (--backend,
+--cache-dir, --limit; `load_dataset`) before anything touches the card.
+Layouts other than blocked are not ported yet (ROADMAP A8b).
 """
 
 from __future__ import annotations
@@ -42,8 +45,13 @@ def parse_args(argv=None):
     p.add_argument("--data", default=None, help="concatenated xyz file")
     p.add_argument("--data-npz", default=None,
                    help="a graph cache (save_graph_cache npz)")
+    p.add_argument("--backend", default="auto",
+                   choices=["auto", "pyscf", "native", "native6311", "zero"],
+                   help="integral featurizer backend for --data")
+    p.add_argument("--cache-dir", default="./processed",
+                   help="where --data's featurized cache is kept")
     p.add_argument("--limit", type=int, default=None,
-                   help="use only the first N molecules of the cache")
+                   help="use only the first N molecules")
     p.add_argument("--stats", default=None,
                    help="standardization.json of the training run (mu and "
                         "sigma applied to the targets; the MAE is reported "
@@ -88,10 +96,6 @@ def absolute_error(model, graphs, targets, batch_size: int):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.data:
-        raise NotImplementedError(
-            "--data (featurizing an xyz file) is not ported yet (ROADMAP "
-            "A11); evaluate a graph cache with --data-npz")
     if args.layout != "blocked":
         raise NotImplementedError(
             f"--layout {args.layout} is not ported yet (ROADMAP A8b)")
@@ -103,7 +107,6 @@ def main(argv=None) -> int:
     from x2gnn_tpu_torch.device import resolve_device
     from x2gnn_tpu_torch.infer import Predictor, load_run_configs
 
-    device = resolve_device(args.device)
     # the run's archived configs and standardization beside the
     # checkpoint, as Predictor.from_run reads them: a run with another
     # cutoff or width evaluated with default configs would give garbage
@@ -141,8 +144,19 @@ def main(argv=None) -> int:
         targets = prepare_targets(graphs, args.target)
         multi = graphs[0].y.shape[0] == 12
         std = report_calibration(args.target) if multi else 1.0
+    elif args.data:
+        from x2gnn_tpu_torch.data.dataset import (
+            load_dataset, prepare_targets)
+        from x2gnn_tpu_torch.data.featurize import basis_provenance
+        graphs = load_dataset(args.data, cache_dir=args.cache_dir,
+                              cutoff=mcfg.cutoff, backend=args.backend,
+                              limit=args.limit)
+        targets = prepare_targets(graphs, args.target)
+        multi = graphs[0].y.shape[0] == 12
+        std = report_calibration(args.target) if multi else 1.0
+        data_basis = basis_provenance(args.backend)
     else:
-        print("need --data-npz or --synthetic", file=sys.stderr)
+        print("need --data, --data-npz or --synthetic", file=sys.stderr)
         return 2
 
     # provenance guard: features of another quantum basis give silently
@@ -186,6 +200,7 @@ def main(argv=None) -> int:
             np.float32)
         std *= stats["sigma"]
 
+    device = resolve_device(args.device)
     model = Predictor.from_checkpoint(
         args.ckpt, model_cfg=mcfg, use_ema=not args.use_live_params,
         device=device).model

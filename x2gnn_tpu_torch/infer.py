@@ -10,10 +10,11 @@ ckpt_last.pt, args.json and standardization.json) or from one checkpoint
 
     pred = Predictor.from_run("runs/u0")         # on the card
     energies = pred.predict(graphs)              # featurized MolGraphs
+    energies = pred.predict_xyz("mols.xyz", backend="native6311")
 
-Featurizing xyz files or Molecule objects (`predict_xyz`,
-`predict_molecules`) is not ported yet (ROADMAP A11), and with it the
-check of new molecules' basis against the run's provenance.json.
+`predict_xyz` and `predict_molecules` featurize molecules as training
+does (`data/dataset.py`) and refuse a featurization basis other than
+the run's provenance.json (x2gnn_tpu/infer.py:209-256).
 """
 
 from __future__ import annotations
@@ -52,12 +53,18 @@ class Predictor:
 
     def __init__(self, model_cfg: ModelConfig, model: torch.nn.Module,
                  stats: Optional[dict] = None, batch_size: int = 32,
-                 device="cuda"):
+                 device="cuda", basis: Optional[str] = None,
+                 allow_basis_mismatch: bool = False):
+        """`basis`: the featurization basis of the training run (its
+        provenance.json); `predict_xyz` and `predict_molecules` refuse
+        another unless `allow_basis_mismatch`."""
         self.mcfg = model_cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.stats = stats              # {"mu": ..., "sigma": ...} or None
         self.batch_size = batch_size
+        self.basis = basis
+        self.allow_basis_mismatch = allow_basis_mismatch
 
     @classmethod
     def from_checkpoint(cls, ckpt_path: str,
@@ -87,7 +94,7 @@ class Predictor:
     def from_run(cls, workdir: str, use_ema: bool = True,
                  **kw) -> "Predictor":
         """Restore a training workdir: args.json, standardization.json
-        (if any), and ckpt_best.pt, else
+        and provenance.json (if any), and ckpt_best.pt, else
         ckpt_last.pt (ckpt_best exists only from ckpt_after_epoch on)
         (x2gnn_tpu/infer.py:179-206)."""
         mcfg, _ = load_run_configs(os.path.join(workdir, "args.json"))
@@ -96,6 +103,10 @@ class Predictor:
         if os.path.exists(stats_path):
             with open(stats_path) as f:
                 stats = json.load(f)
+        prov_path = os.path.join(workdir, "provenance.json")
+        if "basis" not in kw and os.path.exists(prov_path):
+            with open(prov_path) as f:
+                kw["basis"] = json.load(f).get("basis")
         ckpt = os.path.join(workdir, "ckpt_best.pt")
         if not os.path.isfile(ckpt):
             ckpt = os.path.join(workdir, "ckpt_last.pt")
@@ -122,15 +133,31 @@ class Predictor:
             pred = pred * self.stats["sigma"] + self.stats["mu"]
         return pred
 
-    def predict_xyz(self, *args, **kwargs) -> np.ndarray:
-        """Featurize an xyz file and predict: not ported yet."""
-        raise NotImplementedError(
-            "predict_xyz featurizes molecules, which is not ported yet "
-            "(ROADMAP A11); featurize elsewhere and call predict(graphs)")
+    def _check_basis(self, backend: str) -> None:
+        from x2gnn_tpu_torch.data.featurize import (
+            basis_provenance, check_basis_compatible)
+        check_basis_compatible(self.basis, basis_provenance(backend),
+                               allow=self.allow_basis_mismatch)
 
-    def predict_molecules(self, *args, **kwargs) -> np.ndarray:
-        """Featurize Molecule objects and predict: not ported yet."""
-        raise NotImplementedError(
-            "predict_molecules featurizes molecules, which is not ported "
-            "yet (ROADMAP A11); featurize elsewhere and call "
-            "predict(graphs)")
+    def predict_xyz(self, xyz_path: str, backend: str = "auto",
+                    cache_dir: Optional[str] = "./processed",
+                    limit: Optional[int] = None,
+                    batch_size: Optional[int] = None) -> np.ndarray:
+        """Featurize a concatenated-xyz file as training does (a cache
+        under `cache_dir`, `load_dataset`) and predict."""
+        self._check_basis(backend)
+        from x2gnn_tpu_torch.data.dataset import load_dataset
+        graphs = load_dataset(xyz_path, cache_dir=cache_dir,
+                              cutoff=self.mcfg.cutoff, backend=backend,
+                              limit=limit)
+        return self.predict(graphs, batch_size=batch_size)
+
+    def predict_molecules(self, molecules: Sequence,
+                          backend: str = "auto",
+                          batch_size: Optional[int] = None) -> np.ndarray:
+        """Featurize in-memory `Molecule`s and predict."""
+        self._check_basis(backend)
+        from x2gnn_tpu_torch.data.dataset import featurize_molecules
+        graphs = featurize_molecules(molecules, cutoff=self.mcfg.cutoff,
+                                     backend=backend)
+        return self.predict(graphs, batch_size=batch_size)

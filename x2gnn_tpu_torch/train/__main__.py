@@ -3,6 +3,9 @@ train.py (:168-358):
 
     python -m x2gnn_tpu_torch.train --synthetic 512 --epochs 20 \\
         --workdir runs/smoke                     # on the card
+    python -m x2gnn_tpu_torch.train --data mols.xyz --backend native6311 \\
+        --config runs/flagship_r5_regression/args.json --pack-mixed \\
+        --workdir runs/xyz          # featurize an xyz file, then train
     python -m x2gnn_tpu_torch.train --data-npz cache.npz \\
         --config runs/flagship_r5_regression/args.json --pack-mixed \\
         --workdir runs/packed      # a graph cache, the flagship recipe
@@ -18,10 +21,14 @@ train.py (:168-358):
         --epochs 2 --batch-size 8 --workdir /tmp/run   # on the CPU
 
 Data: --synthetic N molecules, made with the model's edge feature width
-and cutoff, or --data-npz, a graph cache (`data/dataset.py::
-save_graph_cache`) whose first --limit molecules are used, with targets
-from `prepare_targets`. Featurizing xyz files (--data) is not ported yet
-(ROADMAP A11).
+and cutoff; --data, a concatenated xyz file featurized by `load_dataset`
+with --backend (native6311: the port's integral engine on the published
+6-311+G(3df,2p) data; native: on the 'x2sv' stand-in; auto: pyscf if
+installed, else native6311) into a cache under --cache-dir that later
+runs reuse; or --data-npz, a graph cache (`data/dataset.py::
+save_graph_cache`). --limit keeps the first N molecules; the targets come
+from `prepare_targets`. Featurizing happens before the run touches the
+card.
 
 The model is `ModelConfig` (or the `model` block of --config) in the
 blocked layout, with random weights from seed 0; the target picks its
@@ -36,10 +43,18 @@ int8 keeps the edge features so in the device batch cache, --remat
 recomputes each conv in the backward, --accum-steps N applies the
 optimizer every N micro-batches; a --config's compute_dtype, remat and
 accum_steps hold unless a flag overrides them.
-Other flags: --target, --epochs, --batch-size, --max-lr, --scheduler,
---warmup-steps, --ema-decay, --patience, --fused-update, --atomref-fit,
---standardize, --ckpt-every, --ckpt-after-epoch, --bucket-shapes,
---pack-budget, --pack-mixed, --device.
+--cache-batches auto|on|off|host (train.py:317-322): keep the batches on
+the card (on; auto is on up to 20,000 molecules), assemble and stream
+them every epoch (off), or assemble them once in host memory and stream
+them (host). --profile-dir DIR traces the second epoch into DIR.
+--check-determinism runs the first training step twice before training
+and exits 3 if the two differ in any bit.
+Other flags: --dropout, --target, --epochs, --batch-size, --max-lr,
+--scheduler, --warmup-steps, --ema-decay, --patience, --fused-update,
+--atomref-fit, --standardize, --ckpt-every, --ckpt-after-epoch,
+--bucket-shapes, --pack-budget, --pack-mixed, --device. --layout other
+than blocked (ROADMAP A8b), --data-parallel, --edge-partition and
+--dp-groups (A10) raise NotImplementedError.
 
 Writes provenance.json (the data's basis tag), atomref.json
 (--atomref-fit), standardization.json (--standardize), and through
@@ -55,12 +70,15 @@ import json
 import os
 import sys
 
-# flags of the reference CLI whose paths the port does not run yet
+# flags of the reference CLI whose paths the port does not run yet; the
+# values that leave them off
 _UNPORTED = {
     "data_parallel": ("--data-parallel", "A10"),
     "edge_partition": ("--edge-partition", "A10"),
-    "data": ("--data", "A11"),
+    "dp_groups": ("--dp-groups", "A10"),
+    "layout": ("--layout segment|padded", "A8b"),
 }
+_OFF = (None, False, 0, "blocked")
 
 
 def parse_args(argv=None):
@@ -69,10 +87,17 @@ def parse_args(argv=None):
                    help="a run's args.json or a reference config.json")
     p.add_argument("--synthetic", type=int, default=0,
                    help="train on N synthetic molecules")
+    p.add_argument("--data", default=None,
+                   help="a concatenated xyz file, featurized into a cache")
+    p.add_argument("--backend", default="auto",
+                   choices=["auto", "pyscf", "native", "native6311", "zero"],
+                   help="integral featurizer backend for --data")
+    p.add_argument("--cache-dir", default="./processed",
+                   help="where --data's featurized cache is kept")
     p.add_argument("--data-npz", default=None,
                    help="a graph cache (save_graph_cache npz)")
     p.add_argument("--limit", type=int, default=None,
-                   help="use only the first N molecules of the cache")
+                   help="use only the first N molecules")
     p.add_argument("--target", type=int, default=None,
                    help="QM9 property index (overrides config)")
     p.add_argument("--workdir", default="./runs/run0")
@@ -127,20 +152,38 @@ def parse_args(argv=None):
                    help="edge-feature dtype in the device batch cache "
                         "(int8 with per-edge scales); the model upcasts "
                         "to float32 at entry")
+    p.add_argument("--dropout", type=float, default=None,
+                   help="attention-weight dropout (reference "
+                        "sbftransformer_conv.py:153)")
+    p.add_argument("--cache-batches", choices=["auto", "on", "off", "host"],
+                   default="auto",
+                   help="where the batches live: on the card (on; auto = "
+                        "on up to 20,000 molecules), assembled and streamed "
+                        "every epoch (off), or assembled once in host memory "
+                        "and streamed (host)")
+    p.add_argument("--profile-dir", default=None,
+                   help="trace the second epoch with torch.profiler here")
+    p.add_argument("--check-determinism", action="store_true",
+                   help="before training, run the first training step "
+                        "twice and compare the states bitwise; exit 3 if "
+                        "they differ")
     p.add_argument("--data-parallel", action="store_true")
     p.add_argument("--edge-partition", default=None)
-    p.add_argument("--data", default=None)
+    p.add_argument("--dp-groups", type=int, default=0)
+    p.add_argument("--layout", choices=["segment", "padded", "blocked"],
+                   default="blocked")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
     for field, (flag, item) in _UNPORTED.items():
-        if getattr(args, field):
+        if getattr(args, field) not in _OFF:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP {item})")
-    if not (args.synthetic or args.data_npz):
-        print("need --synthetic N or --data-npz CACHE", file=sys.stderr)
+    if not (args.synthetic or args.data_npz or args.data):
+        print("need --synthetic N, --data XYZ or --data-npz CACHE",
+              file=sys.stderr)
         return 2
 
     import numpy as np
@@ -156,7 +199,6 @@ def main(argv=None) -> int:
     from x2gnn_tpu_torch.train.trainer import (
         Trainer, make_split, resolve_division)
 
-    device = resolve_device(args.device)
     if args.config:
         mcfg, tcfg = load_configs(args.config)
     else:
@@ -184,7 +226,11 @@ def main(argv=None) -> int:
         mcfg = dataclasses.replace(mcfg, compute_dtype=args.compute_dtype)
     if args.remat:
         mcfg = dataclasses.replace(mcfg, remat=True)
+    if args.dropout is not None:
+        mcfg = dataclasses.replace(mcfg, dropout=args.dropout)
 
+    # the data first: featurizing runs a process pool of its own before
+    # this process touches the card
     if args.synthetic:
         graphs = synthetic_dataset(args.synthetic, cutoff=mcfg.cutoff,
                                    edge_feat_dim=mcfg.edge_feat_dim)
@@ -193,15 +239,24 @@ def main(argv=None) -> int:
         data_basis = "synthetic-random"
     else:
         from x2gnn_tpu_torch.data.dataset import (
-            load_graph_cache, prepare_targets, read_cache_basis)
-        graphs = load_graph_cache(args.data_npz)
-        if args.limit:
-            graphs = graphs[:args.limit]
+            load_dataset, load_graph_cache, prepare_targets,
+            read_cache_basis)
+        from x2gnn_tpu_torch.data.featurize import basis_provenance
+        if args.data_npz:
+            graphs = load_graph_cache(args.data_npz)
+            if args.limit:
+                graphs = graphs[:args.limit]
+            data_basis = read_cache_basis(args.data_npz)
+        else:
+            graphs = load_dataset(args.data, cache_dir=args.cache_dir,
+                                  cutoff=mcfg.cutoff, backend=args.backend,
+                                  limit=args.limit)
+            data_basis = basis_provenance(args.backend)
         targets = prepare_targets(graphs, tcfg.target)
         # the eV -> kcal/mol calibration applies to 12-property QM9 labels
         multi = graphs[0].y.shape[0] == 12
         std = report_calibration(tcfg.target) if multi else 1.0
-        data_basis = read_cache_basis(args.data_npz)
+    device = resolve_device(args.device)
     # the data's featurization basis beside the checkpoints: evaluation
     # refuses data of another basis
     os.makedirs(args.workdir, exist_ok=True)
@@ -231,9 +286,12 @@ def main(argv=None) -> int:
             json.dump({"mu": mu, "sigma": sigma}, f)
 
     model = X2GNN(mcfg, torch.Generator().manual_seed(0), device=device)
+    cache_batches = {"auto": None, "on": True, "off": False,
+                     "host": "host"}[args.cache_batches]
     trainer = Trainer(model, mcfg, tcfg, graphs, targets,
                       workdir=args.workdir, std=std,
-                      feat_dtype=args.feat_dtype, device=device)
+                      feat_dtype=args.feat_dtype, device=device,
+                      cache_batches=cache_batches)
     state = None
     resume_from = args.resume
     if resume_from is None and args.auto_resume:
@@ -247,7 +305,19 @@ def main(argv=None) -> int:
         print(f"resumed from {resume_from} at step {int(state.step)} "
               f"(~epoch {done}); {epochs} epochs remaining",
               file=sys.stderr)
-    _, summary = trainer.fit(epochs=epochs, state=state)
+    if args.check_determinism:
+        from x2gnn_tpu_torch.utils.determinism import (
+            check_train_step_determinism)
+        report = check_train_step_determinism(trainer, state=state)
+        tag = "OK" if report["deterministic"] else "MISMATCH"
+        print(f"determinism check: {tag}", file=sys.stderr)
+        for m in report["mismatches"]:
+            print(f"  {m}", file=sys.stderr)
+        if not report["deterministic"]:
+            return 3
+
+    _, summary = trainer.fit(epochs=epochs, state=state,
+                             profile_dir=args.profile_dir)
     print(json.dumps(summary))
     return 0
 

@@ -11,11 +11,17 @@ shapes (`pack_budget` fills each batch to its class budget), and the
 training batches are then visited in a per-(seed, epoch) shuffled order
 (:332-345). With the default budgets, and under `pack_mixed`, batches are
 degree-sorted and carry degree tiers, so each conv runs one attention
-kernel per tier. Batches are cached on the device across epochs (as the
-reference does for datasets under ~20k molecules), so each is copied to
-the card once per run; with `feat_dtype` "float16" or "int8" (per-edge
-scales) the cached batches hold the edge features in that dtype
-(`cast_feat`, trainer.py:309-330), which the model upcasts at entry.
+kernel per tier. `cache_batches` chooses where the batches live, as in
+the reference (trainer.py:170-173, :347-420): True keeps them on the
+device across epochs, each copied to the card once per run (the default
+for datasets up to 20,000 molecules); False assembles each epoch's
+batches in a prefetch thread and copies each to the card (larger
+datasets); "host" assembles them once into host memory and streams them
+to the card every epoch. A streamed batch is pinned and copied on a CUDA
+stream of its own, ahead of the step that reads it; that step's stream
+waits for the copy. With `feat_dtype` "float16" or "int8" (per-edge
+scales) the batches hold the edge features in that dtype (`cast_feat`,
+trainer.py:309-330), which the model upcasts at entry.
 Each step runs the model forward, autograd's backward (the attention's
 through the CUDA backward kernel), then clip, Adam and the EMA, with the
 non-finite skip decided on the device. With attention dropout, a step
@@ -30,7 +36,8 @@ parameters are updated in place; with `fused_update` they are views into
 one flat vector, which the optimizer and the EMA update as a whole. A
 state handed in from outside (`restore`, `fit(state=)`) is first copied
 into those live tensors (`use_state`). A resumed run counts epochs
-globally from its restored step (trainer.py:571-609).
+globally from its restored step (trainer.py:571-609). `fit(profile_dir=)`
+traces the second epoch with torch.profiler (trainer.py:612-617).
 """
 
 from __future__ import annotations
@@ -39,15 +46,16 @@ import dataclasses
 import json
 import os
 import time
-from typing import List, NamedTuple, Optional, Sequence
+from typing import Iterator, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from x2gnn_tpu_torch.config import ModelConfig, TrainConfig, dump_configs
 from x2gnn_tpu_torch.data.batching import (
-    Budgets, GraphBatch, batch_iterator, mixed_packed_plan, pad_budget_for,
-    pad_graphs, size_bucketed_plan)
+    Budgets, GraphBatch, mixed_packed_plan, pad_budget_for, pad_graphs,
+    size_bucketed_plan)
+from x2gnn_tpu_torch.data.prefetch import prefetch
 from x2gnn_tpu_torch.device import resolve_device
 from x2gnn_tpu_torch.train.checkpoint import (
     restore_checkpoint, save_checkpoint)
@@ -86,6 +94,10 @@ def make_split(n: int, seed: int, division) -> tuple:
 
 
 FEAT_DTYPES = ("float32", "float16", "int8")
+CACHE_MODES = (None, True, False, "host")
+# cache_batches=None keeps batches on the device up to this many molecules
+# (trainer.py:170-173)
+DEVICE_CACHE_MAX_MOLECULES = 20000
 
 
 def cast_feat(batch: GraphBatch, feat_dtype: str) -> GraphBatch:
@@ -134,15 +146,22 @@ class Trainer:
         edge_partition: Optional[str] = None,
         feat_dtype: str = "float32",
         device="cuda",
+        cache_batches=None,
     ):
         """`std`: MAE report calibration (trainer.py:57). `budgets`: the
         padding budgets of every fixed-budget batch, and the base of the
         packing planners (default: `pad_budget_for` over all graphs).
-        `feat_dtype`: the edge features' dtype in the cached batches, one
-        of FEAT_DTYPES (`cast_feat`)."""
+        `feat_dtype`: the edge features' dtype in the batches, one of
+        FEAT_DTYPES (`cast_feat`). `cache_batches`: one of CACHE_MODES
+        (see the module's docstring); None is True for up to
+        DEVICE_CACHE_MAX_MOLECULES molecules, else False."""
         if feat_dtype not in FEAT_DTYPES:
             raise ValueError(f"feat_dtype must be one of {FEAT_DTYPES}, "
                              f"got {feat_dtype!r}")
+        if not (cache_batches is None or isinstance(cache_batches, bool)
+                or cache_batches == "host"):
+            raise ValueError(f"cache_batches must be one of {CACHE_MODES}, "
+                             f"got {cache_batches!r}")
         unported = [
             (mesh is not None, "a device mesh (data parallelism)", "A10"),
             (edge_partition is not None, "edge_partition", "A10"),
@@ -177,8 +196,12 @@ class Trainer:
         if self.pack_budget and not self.bucket_shapes:
             raise ValueError("pack_budget requires bucket_shapes >= 1 "
                              "(packing fills the per-class budgets)")
-        self._batch_cache = {}
-        self._totals = {}
+        if cache_batches is None:
+            cache_batches = n <= DEVICE_CACHE_MAX_MOLECULES
+        self.cache_batches = cache_batches
+        self._plans = {}         # split key -> [(chunk, budgets, n_graph)]
+        self._totals = {}        # split key -> real/padded totals
+        self._batch_cache = {}   # split key -> device (True) or host batches
 
         self._names = [name for name, _ in model.named_parameters()]
         self._leaves = list(model.parameters())
@@ -316,57 +339,154 @@ class Trainer:
     def _cache_key(idx):
         return (len(idx), hash(np.ascontiguousarray(idx).tobytes()))
 
-    def batches(self, idx) -> List[GraphBatch]:
-        """The device batches of the molecules `idx`, in plan order (split
-        order for fixed budgets), made once, their edge features cast to
-        `feat_dtype`, and cached; the split's real/padded totals are
-        recorded beside them."""
+    def _plan_of(self, idx) -> list:
+        """[(molecule indices, budgets, graph slots)] of each batch of the
+        molecules `idx`, in plan order (split order for fixed budgets),
+        made once; the split's real/padded totals are recorded beside
+        it."""
         key = self._cache_key(idx)
-        if key not in self._batch_cache:
+        if key not in self._plans:
             idx = np.asarray(idx)
+            bs = self.tcfg.batch_size
             if self.packed:
                 chunks, budgets, stats = self.plan(idx)
-                host = (pad_graphs(
-                    [self.graphs[i] for i in chunk], bud,
-                    n_graph=bud.n_graph or self.tcfg.batch_size,
-                    targets=self.targets[chunk])
-                    for chunk, bud in zip(chunks, budgets))
+                plan = [(np.asarray(c), b, b.n_graph or bs)
+                        for c, b in zip(chunks, budgets)]
             else:
                 stats = self._fixed_totals(idx)
-                host = batch_iterator(
-                    [self.graphs[i] for i in idx], self.tcfg.batch_size,
-                    budgets=self.budgets, targets=self.targets[idx])
+                plan = [(idx[lo:lo + bs], self.budgets, bs)
+                        for lo in range(0, len(idx), bs)]
             self._totals[key] = stats
-            self._batch_cache[key] = [
-                cast_feat(b, self.feat_dtype).to(self.device) for b in host]
+            self._plans[key] = plan
+        return self._plans[key]
+
+    def _assemble(self, entry) -> GraphBatch:
+        """The host batch of one plan entry, its features cast to
+        `feat_dtype` (trainer.py:372-381)."""
+        chunk, budgets, n_graph = entry
+        return cast_feat(pad_graphs(
+            [self.graphs[i] for i in chunk], budgets, n_graph=n_graph,
+            targets=self.targets[chunk]), self.feat_dtype)
+
+    def batches(self, idx) -> List[GraphBatch]:
+        """The device cache (cache_batches=True): the device batches of
+        the molecules `idx` in plan order, made once. The streamed modes
+        keep no batch on the device; `device_batches` streams theirs."""
+        if self.cache_batches is not True:
+            raise ValueError(
+                f"cache_batches={self.cache_batches!r} keeps no device "
+                "batches: stream them with device_batches(idx)")
+        key = self._cache_key(idx)
+        if key not in self._batch_cache:
+            self._batch_cache[key] = [self._assemble(e).to(self.device)
+                                      for e in self._plan_of(idx)]
         return self._batch_cache[key]
+
+    def _host_batches(self, idx) -> List[GraphBatch]:
+        """cache_batches="host": the host batches of `idx`, assembled once
+        (pinned for the card)."""
+        key = self._cache_key(idx)
+        if key not in self._batch_cache:
+            host = [self._assemble(e) for e in self._plan_of(idx)]
+            if self.device.type == "cuda":
+                host = [b.pin_memory() for b in host]
+            self._batch_cache[key] = host
+        return self._batch_cache[key]
+
+    def _stream(self, host: Iterator[GraphBatch]) -> Iterator[GraphBatch]:
+        """Host batches to device batches, two ahead of the consumer: the
+        prefetch thread takes each from `host` (assembling it there if
+        `host` does), and for the card pins it and copies it on a stream of
+        its own, recording an event. The consumer's stream waits on that
+        event before it reads the batch, and each tensor is marked as used
+        on the consumer's stream, so its memory is not handed out again
+        while a step may still read it (trainer.py:347-353)."""
+        device = self.device
+        if device.type != "cuda":
+            yield from prefetch((b.to(device) for b in host), depth=2)
+            return
+        copy_stream = torch.cuda.Stream(device=device)
+
+        def copies():
+            for b in host:
+                if not isinstance(b.numbers, torch.Tensor):
+                    b = b.pin_memory()
+                with torch.cuda.stream(copy_stream):
+                    dev = b.to(device, non_blocking=True)
+                    landed = torch.cuda.Event()
+                    landed.record(copy_stream)
+                yield dev, landed
+
+        compute = torch.cuda.current_stream(device)
+        for dev, landed in prefetch(copies(), depth=2):
+            compute.wait_event(landed)
+            for t in dev.arrays():
+                t.record_stream(compute)
+            yield dev
+
+    def device_batches(self, idx, epoch=None) -> Iterator[GraphBatch]:
+        """The batches of the molecules `idx` on the device, in plan order
+        (for planned batches with `epoch` given, in the order `_shuffle`
+        gives that epoch): from the device cache (cache_batches=True),
+        streamed from the host cache ("host"), or assembled in the
+        prefetch thread and streamed (False)."""
+        if self.cache_batches is True:
+            items = self.batches(idx)
+        elif self.cache_batches == "host":
+            items = self._host_batches(idx)
+        else:
+            items = self._plan_of(idx)
+        if epoch is not None and self.packed:
+            items = [items[j] for j in self._shuffle(len(items), epoch)]
+        if self.cache_batches is True:
+            return iter(items)
+        if self.cache_batches is False:
+            items = (self._assemble(e) for e in items)
+        return self._stream(iter(items))
+
+    def first_batch(self, idx) -> GraphBatch:
+        """The first device batch of the molecules `idx` in plan order; a
+        stream is stopped after it."""
+        batches = self.device_batches(idx)
+        try:
+            return next(batches)
+        finally:
+            close = getattr(batches, "close", None)
+            if close is not None:
+                close()
 
     def steps_per_epoch(self) -> int:
         """Optimizer steps per epoch: the plan's batch count when packed
         (trainer.py:461-486)."""
-        return max(len(self.batches(self.train_idx)), 1)
+        return max(len(self._plan_of(self.train_idx)), 1)
 
-    def train_order(self, epoch: int) -> List[GraphBatch]:
-        """The training batches in the order epoch `epoch` visits them:
-        split order for fixed budgets; for planned batches a permutation
-        seeded by (random_seed, epoch), since the plans are size-sorted
+    def _shuffle(self, n: int, epoch: int) -> np.ndarray:
+        """The permutation of `n` planned batches that epoch `epoch`
+        visits, seeded by (random_seed, epoch): the plans are size-sorted
         (trainer.py:332-345)."""
-        batches = self.batches(self.train_idx)
-        if not self.packed:
-            return batches
         rs = np.random.RandomState(
             (self.tcfg.random_seed * 1000003 + epoch) % (2 ** 31))
-        return [batches[j] for j in rs.permutation(len(batches))]
+        return rs.permutation(n)
+
+    def train_order(self, epoch: int) -> List[GraphBatch]:
+        """`train_batches(epoch)` as a list."""
+        return list(self.train_batches(epoch))
+
+    def train_batches(self, epoch: int) -> Iterator[GraphBatch]:
+        """The training batches of epoch `epoch` on the device, from
+        wherever `cache_batches` keeps them: split order for fixed
+        budgets, `_shuffle` for planned batches."""
+        return self.device_batches(self.train_idx, epoch)
 
     # ---- loops -----------------------------------------------------------
     def run_epoch(self, state: TrainState, epoch: int = 0):
-        """One pass over the train split in `train_order(epoch)`; returns
+        """One pass over the train split in `train_batches(epoch)`; returns
         (state, mean loss per molecule). The losses stay on the device
         until the epoch ends (one transfer, no per-step sync)."""
         losses, counts = [], []
         # the steps' numbers for their dropout masks, read once per epoch
         step = int(state.step) if self.mcfg.dropout > 0 else None
-        for batch in self.train_order(epoch):
+        for batch in self.train_batches(epoch):
             state, loss = self.train_step(state, batch, step)
             if step is not None:
                 step += 1
@@ -379,14 +499,15 @@ class Trainer:
     def evaluate(self, state: TrainState, idx) -> float:
         """MAE over the molecules `idx` on the EMA weights, calibrated."""
         ema = self.ema_parameters(state)
-        accum = [self.eval_step(ema, b) for b in self.batches(idx)]
+        accum = [self.eval_step(ema, b) for b in self.device_batches(idx)]
         errs = torch.stack([e for e, _ in accum]).cpu().numpy()
         counts = torch.stack([c for _, c in accum]).cpu().numpy()
         total = float(errs.astype(np.float64).sum())
         return self.std * total / max(int(counts.sum()), 1)
 
     def fit(self, epochs: Optional[int] = None,
-            state: Optional[TrainState] = None):
+            state: Optional[TrainState] = None,
+            profile_dir: Optional[str] = None):
         """Train for `epochs` (default max_epoch) from `state` (a resumed
         run, e.g. `restore`) or `init_state()`: plateau control, the
         best-val gate with ckpt_best.pt, ckpt_last.pt every ckpt_every
@@ -397,7 +518,9 @@ class Trainer:
         run. A resumed run starts the plateau controller at the restored
         scale (its best and patience counters start again, as in the
         reference) and the best-val gate at the restored weights' val MAE
-        or the smaller recorded ckpt_best_val.json. Returns (state,
+        or the smaller recorded ckpt_best_val.json. `profile_dir`: trace
+        the second epoch (the first builds the batches and the kernels)
+        into that directory (`utils/profiling.py::trace`). Returns (state,
         {"best_val_mae", "test_mae"})."""
         epochs = self.tcfg.max_epoch if epochs is None else epochs
         os.makedirs(self.workdir, exist_ok=True)
@@ -432,7 +555,12 @@ class Trainer:
                 pass   # absent or torn file: the evaluation stands
         for epoch in range(epochs):
             t0 = time.time()
-            state, loss = self.run_epoch(state, epoch0 + epoch)
+            if profile_dir is not None and epoch == 1:
+                from x2gnn_tpu_torch.utils.profiling import trace
+                with trace(profile_dir, self.device):
+                    state, loss = self.run_epoch(state, epoch0 + epoch)
+            else:
+                state, loss = self.run_epoch(state, epoch0 + epoch)
             val_err = self.evaluate(state, self.val_idx)
             if plateau is not None:
                 new_scale = plateau.step(val_err)

@@ -118,7 +118,8 @@ def check_determinism(fn: Callable, *args, repeats: int = 2,
 def check_train_step_determinism(trainer, state=None,
                                  repeats: int = 2) -> Dict[str, Any]:
     """Re-run the trainer's training step on its first training batch (in
-    plan order) and compare the resulting TrainState and loss bitwise.
+    plan order, from wherever the trainer keeps its batches) and compare
+    the resulting TrainState and loss bitwise.
 
     `train_step` updates the model's parameters in place, so each repeat
     first writes the parameters, the optimizer state and the EMA back from
@@ -126,7 +127,7 @@ def check_train_step_determinism(trainer, state=None,
     parameters hold `state`'s values again when the check returns."""
     state = state if state is not None else trainer.init_state()
     saved = copy_tree(state)
-    batch = trainer.batches(trainer.train_idx)[0]
+    batch = trainer.first_batch(trainer.train_idx)
 
     def step(start):
         new, loss = trainer.train_step(trainer.use_state(start), batch)
