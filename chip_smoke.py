@@ -2,7 +2,8 @@
 """Chip smoke test of the PyTorch/H100 port: builds the port's CUDA
 kernels, holds each against its plain PyTorch version on the card, serves
 the flagship X2GNN through the port's Predictor, trains it through the
-port's Trainer, and times both.
+port's Trainer, in all three attention layouts and both variants, and
+times them.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -145,6 +146,24 @@ Phases, each of which raises on failure (exit code != 0):
      graphs; (e) the CLI on 128 molecules of (b)'s cache with
      --cache-batches host, --profile-dir (a trace file) and
      --check-determinism (OK).
+ 12. the rest of the reference's model options at the flagship's width:
+     (a) variant v2 with the beta-gated skip on the blocked layout:
+     serving the 256 QM9-scale molecules (4 launches per batch), card vs
+     CPU within 1e-4; one packed step (32 forward, backward and reduce
+     launches), card vs CPU within the gradient gates, bitwise on a rerun;
+     molecules/s, step ms, busy ms and a step's peak memory in turns with
+     the v1 flagship; (b) phase 4's weights in the segment and padded
+     layouts: the 256 molecules within 5e-4 / 5e-5 x max of the blocked
+     predictions and within 1e-4 of the CPU, no attention kernel launched;
+     one packed step per layout card vs CPU and bitwise on a rerun (no
+     launch); molecules/s, step and busy ms and a step's peak memory in
+     turns with the blocked layout; (c) `python -m x2gnn_tpu_torch.train
+     --layout segment --check-determinism` for 1 epoch of the packed
+     recipe as a subprocess, and `evaluate --layout` of phase 8c's blocked
+     run in every layout (the MAEs within 1e-4 relative); (d) the three
+     layouts' forwards under one set of explicit masks at rate 0.1, within
+     (b)'s tolerance; (e) the segment layout's attention weights of conv_0
+     against the blocked kernel's alpha (`pairs_to_triplet_weights`).
 Each row of the kernels line takes its launches from a path that launches
 its shape, with the counts zeroed just before that path.
 The line before the last is a JSON object {"kernels": [...]}; the last
@@ -829,7 +848,9 @@ def check_step_on_card_and_cpu(mcfg, graphs, device, tag="card vs cpu",
         pred = m(b, dropout_masks=None if masks is None
                  else [x.to(dev) for x in masks])
         loss = smooth_l1_loss(pred, b.y, mask=b.graph_mask)
-        g = torch.autograd.grad(loss, list(m.parameters()))
+        # v2 leaves the atom embedding unused: zero gradients
+        g = torch.autograd.grad(loss, list(m.parameters()),
+                                materialize_grads=True)
         return loss.item(), {n: t.detach().cpu() for (n, _), t in
                              zip(m.named_parameters(), g)}
 
@@ -1159,13 +1180,15 @@ def run_cli(args, tag, timeout=600):
     return proc
 
 
-def check_run_io(mcfg, graphs, qm9, device, card, steps_per_epoch):
+def check_run_io(mcfg, graphs, qm9, device, card, steps_per_epoch,
+                 keep=None):
     """Phases 8c-8e: a graph cache of the training molecules; the training
     CLI on it for 1 epoch, then with --auto-resume to 2; the evaluate CLI
     against Predictor.from_run's MAE; from_run serving the QM9-scale
     molecules (launches; bitwise against a Predictor on the EMA weights
     restored by Trainer.restore; one batch against the CPU); the .pth
-    export and import (bitwise)."""
+    export and import (bitwise). The run's directory and the cache are
+    copied under `keep` (phase 12c evaluates them in every layout)."""
     import numpy as np
     import torch
     from x2gnn_tpu_torch.data.dataset import save_graph_cache
@@ -1270,6 +1293,9 @@ def check_run_io(mcfg, graphs, qm9, device, card, steps_per_epoch):
         if any(report.values()) or not same or not np.array_equal(back,
                                                                  preds):
             raise AssertionError("pth: the round trip changed the model")
+        if keep is not None:
+            shutil.copytree(work, os.path.join(keep, "run"))
+            shutil.copy(cache, os.path.join(keep, "cache.npz"))
 
 
 # ---- phase 9: the gap recipe (molwise readout, attention dropout) ----
@@ -1938,7 +1964,8 @@ def grads_of_step(model, batch, generator=None):
           else dict(deterministic=False, generator=generator))
     pred = model(batch, **kw)
     loss = smooth_l1_loss(pred, batch.y, mask=batch.graph_mask)
-    grads = torch.autograd.grad(loss, list(model.parameters()))
+    grads = torch.autograd.grad(loss, list(model.parameters()),
+                                materialize_grads=True)
     torch.cuda.synchronize()
     return (loss, grads, launch_counts(), torch.cuda.max_memory_allocated(),
             before)
@@ -2553,6 +2580,291 @@ def data_pipeline(card, device):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---- phase 12: v2 and the beta gate; the segment and padded layouts ----
+
+# the three layouts against each other: tests/test_model_v2.py:52's
+# tolerance, the absolute part scaled by the largest |prediction|
+LAYOUT_RTOL, LAYOUT_ATOL = 5e-4, 5e-5
+
+
+def held_across_layouts(tag, got, ref):
+    import numpy as np
+    scale = float(np.abs(ref).max())
+    err = np.abs(got - ref)
+    log(f"[{tag}] max_abs={err.max():.3e} max_rel="
+        f"{(err / np.maximum(np.abs(ref), 1e-30)).max():.3e} (|pred| max "
+        f"{scale:.3e}; limit rtol {LAYOUT_RTOL} + {LAYOUT_ATOL} x max)")
+    np.testing.assert_allclose(got, ref, rtol=LAYOUT_RTOL,
+                               atol=LAYOUT_ATOL * scale, err_msg=tag)
+
+
+def first_host_batch(trainer):
+    """The host assembly of the trainer's first training batch."""
+    return trainer._assemble(trainer._plan_of(trainer.train_idx)[0])
+
+
+def step_turn(tag, trainer, state, batches):
+    """Step ms (CUDA events), busy ms (traced) and a step's peak device
+    memory (phase 10c's method) on cached batches; counts zeroed before."""
+    from x2gnn_tpu_torch.ops.blocked_attn import reset_launch_counts
+    reset_launch_counts()
+    ms, state, steps = step_ms(trainer, state, batches)
+    counts = {k: v / steps for k, v in launch_counts().items()}
+    busy, wall, state = busy_ms(trainer, state, batches)
+    _, _, _, peak, before = grads_of_step(trainer.model, batches[0])
+    log(f"[layouts {tag}] {ms:.3f} ms per step (median of 20, CUDA "
+        f"events), busy {busy:.3f} ms, wall {wall:.3f} ms traced, idle "
+        f"{1 - busy / wall:.3f}; peak device memory of a step "
+        f"{peak / 2**20:.1f} MiB (the step's own {(peak - before) / 2**20:.1f}"
+        f" MiB); attention launches per step {counts}")
+    return {"ms": ms, "busy": busy, "peak": peak, "own": peak - before}, state
+
+
+def v2_beta_blocked(card, device, qm9, train_graphs, mcfg, tcfg, pred,
+                    packed, pstate):
+    """Phase 12a: the flagship with variant v2 and the beta gate on the
+    blocked layout: serving (launches, card vs CPU), one packed step
+    (launches, card vs CPU, bitwise rerun), and molecules/s, step and busy
+    ms in turns with the v1 flagship (phase 4's Predictor, phase 6a's
+    trainer)."""
+    import numpy as np
+    import torch
+    from x2gnn_tpu_torch.infer import Predictor
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    from x2gnn_tpu_torch.ops.blocked_attn import reset_launch_counts
+    from x2gnn_tpu_torch.utils.determinism import (
+        check_train_step_determinism)
+
+    cfg = dataclasses.replace(mcfg, variant="v2", beta=True)
+    model = X2GNN(cfg, torch.Generator().manual_seed(0), device=device)
+    v2 = Predictor(cfg, model, batch_size=32, device=device)
+    out, launches = serve(v2, qm9, cfg.conv_layers * math.ceil(len(qm9) / 32),
+                          "v2+beta")
+    cpu = Predictor(cfg, copy.deepcopy(model).to("cpu"), batch_size=32,
+                    device="cpu").predict(qm9[:32])
+    diff = np.abs(out[:32] - cpu)
+    log(f"[serve v2+beta] card vs CPU on 32 molecules: max_abs="
+        f"{diff.max():.3e} (|pred| max {np.abs(cpu).max():.3e})")
+    np.testing.assert_allclose(out[:32], cpu, rtol=MODEL_RTOL,
+                               atol=MODEL_ATOL)
+    trainer = flagship_trainer(cfg, tcfg, train_graphs, device, "unused")
+    batches = trainer.batches(trainer.train_idx)
+    state = trainer.init_state()
+    reset_launch_counts()
+    state, loss = trainer.train_step(state, batches[0])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    n = cfg.conv_layers * len(windows_of(batches[0]))
+    log(f"[train v2+beta] one packed step on N, D = "
+        f"{tuple(batches[0].in_edges.shape)}, {len(windows_of(batches[0]))} "
+        f"windows: loss {float(loss):.6f}, launches {counts} (expected {n} "
+        "each)")
+    if counts != {"fwd": n, "bwd": n, "reduce": n} or not math.isfinite(
+            float(loss)):
+        raise AssertionError(f"v2+beta step: launches {counts}")
+    check_step_on_card_and_cpu(cfg, None, device, "v2+beta card vs cpu",
+                               batch=first_host_batch(trainer))
+    report = check_train_step_determinism(trainer, repeats=2)
+    log(f"[train v2+beta] step rerun: mismatches "
+        f"{json.dumps(report['mismatches'])}")
+    if not report["deterministic"]:
+        raise AssertionError("v2+beta: the step differs on a rerun")
+    rates, turns = {}, {}
+    states = {"v1": pstate, "v2+beta": state}
+    runs = {"v1": (pred, packed, packed.batches(packed.train_idx)),
+            "v2+beta": (v2, trainer, batches)}
+    for name in ("v1", "v2+beta", "v2+beta", "v1"):
+        p, tr, bs = runs[name]
+        rates.setdefault(name, []).append(predict_rate(p, qm9))
+        turn, states[name] = step_turn(name, tr, states[name], bs)
+        turns.setdefault(name, []).append(turn)
+    for name in ("v1", "v2+beta"):
+        log(f"[layouts {name}] {card}: serving " + " / ".join(
+            f"{r:.1f}" for r in rates[name]) + " molecules/s; packed step "
+            + " / ".join(f"{t['ms']:.3f}" for t in turns[name]) + " ms, busy "
+            + " / ".join(f"{t['busy']:.3f}" for t in turns[name]) + " ms")
+
+
+def flat_layouts(card, device, qm9, train_graphs, mcfg, tcfg, model, pred,
+                 packed, pstate):
+    """Phase 12b, 12d, 12e: phase 4's flagship weights in the segment and
+    padded layouts: serving the 256 molecules against the blocked
+    predictions and the CPU, no attention kernel launched; one packed step
+    per layout card vs CPU and rerun bitwise; serving molecules/s, step
+    and busy ms and a step's peak memory in turns with the blocked
+    layout; the three forwards under one set of explicit masks; the
+    segment layout's attention weights against the blocked kernel's.
+    Returns the models and the first flat packed batch."""
+    import numpy as np
+    import torch
+    from x2gnn_tpu_torch.infer import Predictor
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    from x2gnn_tpu_torch.ops.attention import (
+        pairs_to_triplet_weights, triplet_pair_positions)
+    from x2gnn_tpu_torch.ops.blocked_attn import reset_launch_counts
+    from x2gnn_tpu_torch.utils.determinism import (
+        check_train_step_determinism)
+
+    ref = pred.predict(qm9)
+    models, preds, trainers = {"blocked": model}, {"blocked": pred}, {}
+    states, batches = {}, {}
+    for layout in ("segment", "padded"):
+        cfg = dataclasses.replace(mcfg, attention_layout=layout)
+        m = X2GNN(cfg, torch.Generator().manual_seed(1), device=device)
+        m.load_state_dict(model.state_dict())
+        models[layout] = m
+        preds[layout] = Predictor(cfg, m, batch_size=32, device=device)
+        out, _ = serve(preds[layout], qm9, 0, layout)
+        held_across_layouts(f"serve {layout} vs blocked", out, ref)
+        cpu = Predictor(cfg, copy.deepcopy(m).to("cpu"), batch_size=32,
+                        device="cpu").predict(qm9[:32])
+        diff = np.abs(out[:32] - cpu)
+        log(f"[serve {layout}] card vs CPU on 32 molecules: max_abs="
+            f"{diff.max():.3e} (|pred| max {np.abs(cpu).max():.3e})")
+        np.testing.assert_allclose(out[:32], cpu, rtol=MODEL_RTOL,
+                                   atol=MODEL_ATOL)
+        tr = flagship_trainer(cfg, tcfg, train_graphs, device, "unused")
+        trainers[layout], batches[layout] = tr, tr.batches(tr.train_idx)
+        b0 = batches[layout][0]
+        log(f"[train {layout}] {len(batches[layout])} packed batches, the "
+            f"first N, E, T, D = {b0.in_edges.shape[0]}, "
+            f"{b0.edge_mask.shape[0]}, {b0.trip_mask.shape[0]}, "
+            f"{b0.in_edges.shape[1]}, {int(b0.trip_mask.sum())} real "
+            "triplets")
+        check_step_on_card_and_cpu(cfg, None, device,
+                                   f"{layout} card vs cpu",
+                                   batch=first_host_batch(tr))
+        reset_launch_counts()
+        report = check_train_step_determinism(tr, repeats=2)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        log(f"[train {layout}] step rerun: mismatches "
+            f"{json.dumps(report['mismatches'])}; attention launches "
+            f"{counts}")
+        if not report["deterministic"]:
+            raise AssertionError(f"{layout}: the step differs on a rerun")
+        if any(counts.values()):
+            raise AssertionError(f"{layout}: the blocked kernels ran")
+        states[layout] = tr.init_state()
+    trainers["blocked"] = packed
+    batches["blocked"] = packed.batches(packed.train_idx)
+    states["blocked"] = pstate
+    order = ("blocked", "segment", "padded", "padded", "segment", "blocked")
+    rates, turns = {}, {}
+    for layout in order:
+        rates.setdefault(layout, []).append(predict_rate(preds[layout], qm9))
+        turn, states[layout] = step_turn(layout, trainers[layout],
+                                         states[layout], batches[layout])
+        turns.setdefault(layout, []).append(turn)
+    for layout in ("blocked", "segment", "padded"):
+        t = turns[layout]
+        log(f"[layouts {layout}] {card}: serving " + " / ".join(
+            f"{r:.1f}" for r in rates[layout]) + " molecules/s; packed step "
+            + " / ".join(f"{x['ms']:.3f}" for x in t) + " ms, busy "
+            + " / ".join(f"{x['busy']:.3f}" for x in t) + " ms, peak "
+            + " / ".join(f"{x['peak'] / 2**20:.1f}" for x in t) + " MiB")
+
+    # 12d: one explicit set of pair-space masks at rate 0.1, all layouts
+    batch = batches["segment"][0]
+    N, D = batch.in_edges.shape
+    rng = np.random.default_rng(95)
+    keep = np.float32(0.9)
+    masks = [torch.from_numpy((rng.random((N, D, D, mcfg.heads)) < keep)
+                              .astype(np.float32) / keep).to(device)
+             for _ in range(mcfg.conv_layers)]
+    with torch.no_grad():
+        dropped = {k: m(batch, deterministic=False,
+                        dropout_masks=masks).cpu().numpy()
+                   for k, m in models.items()}
+        plain = models["blocked"](batch).cpu().numpy()
+    for layout in ("segment", "padded"):
+        held_across_layouts(f"dropout {layout} vs blocked", dropped[layout],
+                            dropped["blocked"])
+    if np.allclose(dropped["blocked"], plain, rtol=1e-3):
+        raise AssertionError("dropout: the masks changed nothing")
+
+    # 12e: conv_0's attention weights, segment (T, H) against the blocked
+    # kernel's alpha through pairs_to_triplet_weights
+    alphas = {}
+    for layout in ("blocked", "segment"):
+        seen = {}
+
+        def grab(module, args, kwargs):
+            seen["args"], seen["kwargs"] = args, kwargs
+
+        handle = models[layout].conv_0.register_forward_pre_hook(
+            grab, with_kwargs=True)
+        with torch.no_grad():
+            models[layout](batch)
+        handle.remove()
+        with torch.no_grad():
+            _, alphas[layout] = models[layout].conv_0(
+                *seen["args"], **{**seen["kwargs"],
+                                  "return_attention_weights": True})
+    pair_pos = triplet_pair_positions(batch.trip_dst_edge,
+                                      batch.trip_src_edge, batch.edge_inpos,
+                                      batch.edge_outpos, D)
+    real = batch.trip_mask
+    got = alphas["segment"][real].cpu().numpy()
+    want = pairs_to_triplet_weights(alphas["blocked"],
+                                    pair_pos)[real].cpu().numpy()
+    err = np.abs(got - want)
+    log(f"[alpha layouts] conv_0 weights of {int(real.sum())} triplets, "
+        f"segment against the blocked kernel's alpha: max_abs "
+        f"{err.max():.3e} (limit {KERNEL_RTOL} relative + {KERNEL_ATOL})")
+    np.testing.assert_allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+    if (alphas["segment"][~real] != 0).any():
+        raise AssertionError("alpha: pad triplets carry weight")
+
+
+def layout_clis(card, device, train_graphs, kept):
+    """Phase 12c: `train --layout segment` for one epoch of the packed
+    recipe on the 512 molecules' graph cache, with --check-determinism, as
+    a subprocess; `evaluate --layout` of phase 8c's blocked run in every
+    layout (in this process): the flat layouts' MAE within 1e-4 relative
+    of the blocked one."""
+    import contextlib as _ctx
+    import io
+    from x2gnn_tpu_torch.evaluate import main as evaluate_main
+
+    cache = os.path.join(kept, "cache.npz")
+    work = os.path.join(kept, "segment")
+    proc = run_cli(["x2gnn_tpu_torch.train", "--config", FLAGSHIP_ARGS,
+                    "--data-npz", cache, "--epochs", "1", "--pack-mixed",
+                    "--layout", "segment", "--check-determinism",
+                    "--workdir", work], "cli train --layout segment")
+    (record,) = read_records(work)
+    with open(os.path.join(work, "args.json")) as f:
+        layout = json.load(f)["model"]["attention_layout"]
+    log(f"[cli train --layout segment] {card}: epoch 1 loss "
+        f"{record['loss']:.6f} val_mae {record['val_mae']:.6f} step "
+        f"{record['step']} {record['molecules_per_sec']:.1f} molecules/s; "
+        f"args.json layout {layout}")
+    if ("determinism check: OK" not in proc.stderr or layout != "segment"
+            or not math.isfinite(record["loss"]) or record["bad_steps"]):
+        raise AssertionError(f"cli train --layout segment: {record}")
+    maes = {}
+    for layout in ("blocked", "segment", "padded"):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with _ctx.redirect_stdout(out):
+            rc = evaluate_main(["--ckpt", os.path.join(kept, "run",
+                                                       "ckpt_best.pt"),
+                                "--data-npz", cache, "--layout", layout])
+        result = json.loads(out.getvalue().strip().splitlines()[-1])
+        maes[layout] = result["mae"]
+        log(f"[cli evaluate --layout {layout}] {card}: {json.dumps(result)} "
+            f"in {time.perf_counter() - t0:.1f} s (exit {rc})")
+        if rc != 0:
+            raise AssertionError(f"evaluate --layout {layout}: exit {rc}")
+    for layout in ("segment", "padded"):
+        rel = abs(maes[layout] - maes["blocked"]) / abs(maes["blocked"])
+        log(f"[cli evaluate --layout {layout}] MAE relative to blocked "
+            f"{rel:.3e} (limit 1e-4)")
+        if rel > 1e-4:
+            raise AssertionError(f"evaluate --layout {layout}: MAE differs")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2796,7 +3108,8 @@ def main() -> int:
     check_step_determinism(mcfg, tcfg, train_graphs, qm9, device, card)
     spe = check_resume(mcfg, tcfg, train_graphs, device, card,
                        packed_records)
-    check_run_io(mcfg, train_graphs, qm9, device, card, spe)
+    kept = tempfile.TemporaryDirectory()    # 8c's run, for phase 12c
+    check_run_io(mcfg, train_graphs, qm9, device, card, spe, keep=kept.name)
 
     # ---- 9. the gap recipe: molwise readout, attention dropout ----
     log(f"[phase 9] starts at {time.perf_counter() - t_start:.1f} s")
@@ -2813,6 +3126,20 @@ def main() -> int:
     log(f"[phase 11] starts at {time.perf_counter() - t_start:.1f} s")
     data_rows = data_pipeline(card, device)
     log(f"[phase 11] done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 12. v2 and the beta gate; the segment and padded layouts ----
+    t12 = time.perf_counter()
+    log(f"[phase 12] starts at {t12 - t_start:.1f} s")
+    v2_beta_blocked(card, device, qm9, train_graphs, mcfg, tcfg, pred,
+                    packed, pstate)
+    log(f"[phase 12a] done at {time.perf_counter() - t_start:.1f} s")
+    flat_layouts(card, device, qm9, train_graphs, mcfg, tcfg, model, pred,
+                 packed, pstate)
+    log(f"[phase 12b, d, e] done at {time.perf_counter() - t_start:.1f} s")
+    layout_clis(card, device, train_graphs, kept.name)
+    kept.cleanup()
+    log(f"[phase 12] took {time.perf_counter() - t12:.1f} s; done at "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     fwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_fwd.cu"
     bwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_bwd.cu"

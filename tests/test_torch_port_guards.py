@@ -45,7 +45,9 @@ def test_port_imports_no_jax_nor_the_jax_package():
                    "utils/profiling.py", "data/prefetch.py",
                    "data/synthetic.py", "data/make_synthetic.py",
                    "data/integrals/basis.py", "data/integrals/md.py",
-                   "data/integrals/engine.py"):
+                   "data/integrals/engine.py", "models/x2gnn.py",
+                   "nn/conv.py", "ops/attention.py", "ops/segment.py",
+                   "ops/basis.py", "data/batching.py"):
         assert f"x2gnn_tpu_torch/{module}" in scanned, module
     bad = [(str(p.relative_to(REPO)), name) for p in files
            for name in _imports(p)
@@ -132,9 +134,11 @@ def test_run_io_entry_points_default_to_the_card(tmp_path):
 # read for compatibility with the reference's args.json, which records them:
 # the port always runs the kernel formulation (use_pallas), plans its own
 # budgets (pad_*), and, as the reference, trains with smooth L1 and
-# evaluates on the EMA weights (loss, eval_on_ema are read by neither)
+# evaluates on the EMA weights (loss, eval_on_ema are read by neither);
+# param_dtype's only use in the reference is its definition
+# (x2gnn_tpu/config.py:48): parameters are float32 whatever it says
 COMPAT_ONLY = {"use_pallas", "pad_nodes", "pad_edges", "pad_triplets",
-               "loss", "eval_on_ema"}
+               "loss", "eval_on_ema", "param_dtype"}
 
 GUARD_MODEL = dict(conv_layers=1, in_channels=32, embedding_size=32,
                    heads=4, sbf_dim=7, rbf_dim=6, edge_feat_dim=8,
@@ -150,8 +154,8 @@ MODEL_PROBES = {
     "mlp_depth": (2, "predict"), "compute_dtype": ("bfloat16", "predict"),
     "dropout": (0.3, "train forward"),
     "remat": (True, "attention forwards in a backward"),
-    "beta": (True, "refused"), "param_dtype": ("bfloat16", "refused"),
-    "attention_layout": ("padded", "refused"), "variant": ("v2", "refused"),
+    "beta": (True, "predict"), "attention_layout": ("padded", "predict"),
+    "variant": ("v2", "predict"),
 }
 
 GUARD_TRAIN = dict(batch_size=4, max_epoch=2, ckpt_after_epoch=5)
@@ -184,10 +188,11 @@ def _guard_graphs(cfg, n=12):
 
 def _model_observation(cfg, how):
     from x2gnn_tpu_torch.data.batching import pad_budget_for, pad_graphs
-    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN, needs_triplets
     from x2gnn_tpu_torch.ops import blocked_attn
     graphs = _guard_graphs(cfg, 4)
-    batch = pad_graphs(graphs, pad_budget_for(graphs, 4)).to("cpu")
+    batch = pad_graphs(graphs, pad_budget_for(graphs, 4),
+                       with_triplets=needs_triplets(cfg)).to("cpu")
     model = X2GNN(cfg, torch.Generator().manual_seed(0), device="cpu")
     if how == "predict":
         with torch.no_grad():
@@ -356,14 +361,70 @@ def test_featurizing_entry_points_are_honoured(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["--data-parallel"], "A10"), (["--edge-partition", "ring"], "A10"),
-    (["--dp-groups", "2"], "A10"), (["--layout", "padded"], "A8b")])
+    (["--dp-groups", "2"], "A10")])
 def test_unported_cli_flags_stay_refused(argv, item, tmp_path):
-    from x2gnn_tpu_torch.evaluate import main as evaluate_main
     from x2gnn_tpu_torch.train.__main__ import main
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         main(["--device", "cpu", "--synthetic", "4", "--workdir",
               str(tmp_path), *argv])
-    if argv[0] == "--layout":
-        with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-            evaluate_main(["--ckpt", str(tmp_path / "c.pt"), "--synthetic",
-                           "2", "--layout", "padded"])
+
+
+@pytest.mark.parametrize("layout", ["padded", "segment"])
+def test_layout_flags_train_and_evaluate(layout, tmp_path, capsys):
+    """--layout trains the flat-edge model (its args.json records the
+    layout) and evaluate --layout evaluates in it."""
+    import json
+    from x2gnn_tpu_torch.config import load_configs
+    from x2gnn_tpu_torch.evaluate import main as evaluate_main
+    from x2gnn_tpu_torch.train.__main__ import main
+    config = tmp_path / "guard.json"
+    config.write_text(json.dumps({"model": GUARD_MODEL,
+                                  "train": {**GUARD_TRAIN, "max_epoch": 1,
+                                            "ckpt_after_epoch": 0}}))
+    workdir = tmp_path / "run"
+    assert main(["--device", "cpu", "--synthetic", "8", "--config",
+                 str(config), "--layout", layout, "--workdir",
+                 str(workdir)]) == 0
+    assert load_configs(str(workdir / "args.json"))[0].attention_layout \
+        == layout
+    capsys.readouterr()
+    assert evaluate_main(["--ckpt", str(workdir / "ckpt_best.pt"),
+                          "--synthetic", "8", "--layout", layout,
+                          "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["count"] == 8 and np.isfinite(out["mae"])
+
+
+def test_param_dtype_is_read_and_ignored_in_both_packages():
+    """param_dtype="bfloat16" gives the float32 predictions and float32
+    parameters in the JAX package, which reads it nowhere, and in the
+    port."""
+    import dataclasses
+    import jax
+    from x2gnn_tpu.config import ModelConfig as JaxModelConfig
+    from x2gnn_tpu.data import batching as jbatching
+    from x2gnn_tpu.models import X2GNN as JaxX2GNN
+    from x2gnn_tpu_torch.config import ModelConfig
+    from x2gnn_tpu_torch.data.batching import pad_budget_for, pad_graphs
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    cfg = ModelConfig(**GUARD_MODEL)
+    graphs = _guard_graphs(cfg, 4)
+    bud = pad_budget_for(graphs, 4)
+    batch = pad_graphs(graphs, bud).to("cpu")
+    jb = jbatching.pad_graphs(graphs, jbatching.Budgets(*bud),
+                              with_triplets=False)
+    preds, jpreds = [], []
+    for dtype in ("float32", "bfloat16"):
+        model = X2GNN(dataclasses.replace(cfg, param_dtype=dtype),
+                      torch.Generator().manual_seed(0), device="cpu")
+        assert {p.dtype for p in model.parameters()} == {torch.float32}
+        with torch.no_grad():
+            preds.append(model(batch).numpy())
+        jcfg = JaxModelConfig(**{**GUARD_MODEL, "param_dtype": dtype,
+                                 "use_pallas": False})
+        params = JaxX2GNN(jcfg).init(jax.random.PRNGKey(0), jb)
+        assert {leaf.dtype for leaf in jax.tree_util.tree_leaves(
+            params)} == {np.dtype(np.float32)}
+        jpreds.append(np.asarray(JaxX2GNN(jcfg).apply(params, jb)))
+    np.testing.assert_array_equal(preds[1], preds[0])
+    np.testing.assert_array_equal(jpreds[1], jpreds[0])

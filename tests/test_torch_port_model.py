@@ -21,7 +21,7 @@ from x2gnn_tpu_torch.data.batching import pad_budget_for, pad_graphs
 from x2gnn_tpu_torch.data.synthetic import synthetic_dataset
 from x2gnn_tpu_torch.infer import (
     Predictor, load_run_configs, quantize_budgets)
-from x2gnn_tpu_torch.models.x2gnn import X2GNN
+from x2gnn_tpu_torch.models.x2gnn import X2GNN, needs_triplets
 from x2gnn_tpu_torch.weights import export_flax_params, load_flax_params
 
 # the flagship's structure (blocked, v1, atomwise, L=7, K=6) at small width
@@ -156,6 +156,18 @@ def test_load_run_configs_reads_a_reference_config_json(tmp_path):
     ("param_dtype", "bfloat16"), ("compute_dtype", "float16"),
     ("attention_layout", "padded"), ("beta", True)])
 def test_unported_options_raise(field, value):
+    """The options ROADMAP A8b listed as unported now build and predict
+    finite values (each against JAX in test_torch_port_layouts.py and
+    test_torch_port_v2_beta.py); a compute dtype the reference does not
+    compute in is still refused."""
     cfg = dataclasses.replace(ModelConfig(**SMALL), **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-        X2GNN(cfg, device="cpu")
+    if (field, value) == ("compute_dtype", "float16"):
+        with pytest.raises(ValueError, match="compute_dtype"):
+            X2GNN(cfg, device="cpu")
+        return
+    graphs = _graphs(3, seed=8)
+    batch = pad_graphs(graphs, pad_budget_for(graphs, 3),
+                       with_triplets=needs_triplets(cfg))
+    with torch.no_grad():
+        pred = X2GNN(cfg, device="cpu")(batch.to("cpu")).numpy()
+    assert pred.shape == (3,) and np.isfinite(pred).all()

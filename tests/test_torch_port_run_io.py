@@ -278,8 +278,8 @@ def test_evaluate_cli_equals_in_process_mae(capsys, tmp_path, trained_run,
 
 def test_evaluate_cli_guards(capsys, tmp_path, trained_run):
     """The basis guard raises (warns with --allow-basis-mismatch); an
-    element missing from atomref.json exits; --data and non-blocked
-    layouts refuse, naming their ROADMAP items."""
+    element missing from atomref.json exits; a missing --data file
+    raises; --layout segment gives the blocked run's MAE."""
     graphs = synthetic_dataset(8, cutoff=5.0, edge_feat_dim=8)
     cache = str(tmp_path / "x2sv.npz")
     dataset.save_graph_cache(cache, graphs, basis="x2sv")
@@ -302,9 +302,11 @@ def test_evaluate_cli_guards(capsys, tmp_path, trained_run):
     with pytest.raises(FileNotFoundError):
         evaluate_main(["--ckpt", ckpt, "--data", str(tmp_path / "x.xyz"),
                        "--cache-dir", str(tmp_path), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A8b"):
-        evaluate_main(["--ckpt", ckpt, "--synthetic", "4", "--layout",
-                       "segment"])
+    # another layout than the run's evaluates its weights to the same MAE
+    blocked = _evaluate(capsys, ["--ckpt", ckpt, "--synthetic", "8"])
+    segment = _evaluate(capsys, ["--ckpt", ckpt, "--synthetic", "8",
+                                 "--layout", "segment"])
+    np.testing.assert_allclose(segment["mae"], blocked["mae"], rtol=1e-4)
 
 
 # ---- .pth interop ----------------------------------------------------------

@@ -1,12 +1,13 @@
 """Static-shape graph batching: concatenate + pad molecules to fixed
 budgets, sort atoms by degree and build the atom-blocked tables.
 
-The blocked-layout part of x2gnn_tpu/data/batching.py: `Budgets`,
-`plan_degree_tiers` (:135-206), `pad_budget_for` with the two-tier degree
-split and the tier planner (:209-272), `pad_graphs` (:275-477) for the
-blocked layout only (no triplet or neighbor tables), the packing planners
-`mixed_packed_plan` (:480-591) and `size_bucketed_plan` (:594-745), and
-`batch_iterator` (:748-775).
+A copy of x2gnn_tpu/data/batching.py: `Budgets`, `plan_degree_tiers`
+(:135-206), `pad_budget_for` with the two-tier degree split and the tier
+planner (:209-272), `pad_graphs` (:275-477) with the triplet arrays and
+the padded layout's neighbour tables when `with_triplets` (the segment
+and padded layouts read them, the blocked layout never does), the
+packing planners `mixed_packed_plan` (:480-591) and `size_bucketed_plan`
+(:594-745), and `batch_iterator` (:748-775).
 
 Padding convention: pad atoms have atomic number 0 and position 0; pad
 edges carry index 0 everywhere and are excluded by the boolean masks.
@@ -50,10 +51,11 @@ STATIC_FIELDS = ("n_hi", "d_lo", "tiers")
 
 @dataclass
 class GraphBatch:
-    """A fixed-shape batch of molecular graphs in the atom-blocked layout.
+    """A fixed-shape batch of molecular graphs.
 
-    Shapes: N = node budget, E = edge budget, D = degree budget,
-    G = graph budget, F = integral feature dim. Array fields are numpy
+    Shapes: N = node budget, E = edge budget, T = triplet budget (0 when
+    the batch was padded without triplets), D = degree budget, G = graph
+    budget, F = integral feature dim. Array fields are numpy
     arrays from `pad_graphs`; `to(device)` gives the same batch as torch
     tensors. `n_hi`, `d_lo` and `tiers` are Python values that choose the
     attention windows (see `Budgets`).
@@ -64,12 +66,24 @@ class GraphBatch:
     edge_src: np.ndarray       # (E,) int32 source atom of each edge
     edge_dst: np.ndarray       # (E,) int32 destination atom
     edge_feat: np.ndarray      # (E, F) float32
+    # line graph: triplet t carries a message from edge j->k into i->j
+    trip_src_edge: np.ndarray  # (T,) int32 source edge (j->k)
+    trip_dst_edge: np.ndarray  # (T,) int32 destination edge (i->j)
+    trip_j: np.ndarray         # (T,) int32 media atom
+    trip_i: np.ndarray         # (T,) int32 start atom
+    trip_k: np.ndarray         # (T,) int32 end atom
     atom_gid: np.ndarray       # (N,) int32 graph id per atom
     edge_gid: np.ndarray       # (E,) int32 graph id per edge
     node_mask: np.ndarray      # (N,) bool
     edge_mask: np.ndarray      # (E,) bool
+    trip_mask: np.ndarray      # (T,) bool
     y: np.ndarray              # (G,) float32 target
     graph_mask: np.ndarray     # (G,) bool
+    # padded layout: row e lists the triplets flowing into edge e (each
+    # real triplet exactly once), padded to D; (0, D) without triplets
+    nbr_trip: np.ndarray       # (E, D) int32 triplet ids, 0 = padding
+    nbr_src: np.ndarray        # (E, D) int32 source edge of each triplet
+    nbr_mask: np.ndarray       # (E, D) bool
     # atom-blocked layout: row n of the in-table lists the edges arriving
     # at atom n, row n of the out-table the edges leaving it; every real
     # edge occupies exactly one slot of each table
@@ -297,12 +311,17 @@ def pad_graphs(
     budgets: Budgets,
     n_graph: Optional[int] = None,
     targets: Optional[np.ndarray] = None,
+    with_triplets: bool = False,
 ) -> GraphBatch:
     """Concatenate molecules and pad to static budgets; the arrays equal
-    x2gnn_tpu's `pad_graphs(..., with_triplets=False)`. With a two-tier
-    split or tiers in `budgets`, atoms are relabelled by descending degree
-    (pad atoms last) and every index array follows. Each graph's target
-    is `targets[i]` if given (shape (len(graphs),)), else `g.y[0]`."""
+    x2gnn_tpu's `pad_graphs(..., with_triplets=with_triplets)`. With a
+    two-tier split or tiers in `budgets`, atoms are relabelled by
+    descending degree (pad atoms last) and every index array follows,
+    trip_i/j/k too. Each graph's target is `targets[i]` if given (shape
+    (len(graphs),)), else `g.y[0]`. `with_triplets=False` (the blocked
+    layout, which never reads them) leaves the triplet arrays and the
+    neighbour tables zero-length; all batches of a run share the
+    setting."""
     n_node, n_edge, n_trip, n_deg = budgets[:4]
     d_lo, n_hi = budgets.n_deg_lo, budgets.n_hi
     tiers = budgets.tiers
@@ -323,22 +342,31 @@ def pad_graphs(
     edge_src = np.zeros(n_edge, dtype=np.int32)
     edge_dst = np.zeros(n_edge, dtype=np.int32)
     edge_feat = np.zeros((n_edge, feat_dim), dtype=np.float32)
+    n_trip_alloc = n_trip if with_triplets else 0
+    trip_src_edge, trip_dst_edge, trip_j, trip_i, trip_k = (
+        np.zeros(n_trip_alloc, dtype=np.int32) for _ in range(5))
     atom_gid = np.zeros(n_node, dtype=np.int32)
     edge_gid = np.zeros(n_edge, dtype=np.int32)
     y = np.zeros(n_graph, dtype=np.float32)
 
-    a0 = e0 = 0
+    a0 = e0 = t0 = 0
     for gid, g in enumerate(graphs):
-        na, ne = g.num_atoms, g.num_edges
+        na, ne, nt = g.num_atoms, g.num_edges, g.num_triplets
         numbers[a0:a0 + na] = g.numbers
         positions[a0:a0 + na] = g.positions
         edge_src[e0:e0 + ne] = g.edge_index[0] + a0
         edge_dst[e0:e0 + ne] = g.edge_index[1] + a0
         edge_feat[e0:e0 + ne] = g.edge_feat
+        if with_triplets:
+            trip_src_edge[t0:t0 + nt] = g.triplet_index[0] + e0
+            trip_dst_edge[t0:t0 + nt] = g.triplet_index[1] + e0
+            trip_j[t0:t0 + nt] = g.atom_j + a0
+            trip_i[t0:t0 + nt] = g.atom_i + a0
+            trip_k[t0:t0 + nt] = g.atom_k + a0
         atom_gid[a0:a0 + na] = gid
         edge_gid[e0:e0 + ne] = gid
         y[gid] = targets[gid] if targets is not None else g.y[0]
-        a0, e0 = a0 + na, e0 + ne
+        a0, e0, t0 = a0 + na, e0 + ne, t0 + nt
 
     # degree sort, a pure renaming of the atoms. The split fields stay set
     # even for an empty batch (the sort is then the identity).
@@ -353,19 +381,29 @@ def pad_graphs(
                                         atom_gid[perm])
         edge_src[:e0] = inv[edge_src[:e0]]
         edge_dst[:e0] = inv[edge_dst[:e0]]
+        if with_triplets:
+            for a in (trip_i, trip_j, trip_k):
+                a[:t0] = inv[a[:t0]]
     else:
         d_lo = n_hi = 0
 
+    nbr_trip, nbr_mask = _neighbour_table(
+        trip_dst_edge[:t0], n_edge if with_triplets else 0, n_deg)
     in_edges, in_mask, edge_inpos = _slot_table(edge_dst[:e0], n_node, n_deg)
     out_edges, out_mask, edge_outpos = _slot_table(edge_src[:e0], n_node,
                                                    n_deg)
     return GraphBatch(
         numbers=numbers, positions=positions,
         edge_src=edge_src, edge_dst=edge_dst, edge_feat=edge_feat,
+        trip_src_edge=trip_src_edge, trip_dst_edge=trip_dst_edge,
+        trip_j=trip_j, trip_i=trip_i, trip_k=trip_k,
         atom_gid=atom_gid, edge_gid=edge_gid,
         node_mask=np.arange(n_node) < a0,
         edge_mask=np.arange(n_edge) < e0,
+        trip_mask=np.arange(n_trip_alloc) < t0,
         y=y, graph_mask=np.arange(n_graph) < len(graphs),
+        nbr_trip=nbr_trip, nbr_src=trip_src_edge[nbr_trip],
+        nbr_mask=nbr_mask,
         in_edges=in_edges, in_mask=in_mask,
         out_edges=out_edges, out_mask=out_mask,
         edge_inpos=_pad_to(edge_inpos, n_edge),
@@ -373,6 +411,27 @@ def pad_graphs(
         n_hi=int(n_hi), d_lo=int(d_lo),
         tiers=tuple(tuple(int(v) for v in t) for t in tiers),
     )
+
+
+def _neighbour_table(dsts: np.ndarray, n_edge: int, n_deg: int):
+    """(n_edge, n_deg) triplet ids grouped by destination edge and their
+    mask (x2gnn_tpu/data/batching.py:404-422). `dsts`, the real triplets'
+    destination edges, is nondecreasing (each molecule's triplets are
+    sorted by it and the molecules' edge offsets increase), so every
+    edge's triplets sit in consecutive slots in triplet order."""
+    nbr_trip = np.zeros((n_edge, n_deg), dtype=np.int32)
+    nbr_mask = np.zeros((n_edge, n_deg), dtype=bool)
+    t0 = dsts.shape[0]
+    if t0 and n_edge:
+        counts = np.bincount(dsts, minlength=n_edge)
+        if counts.max() > n_deg:
+            raise ValueError(f"max triplets/edge {counts.max()} exceeds "
+                             f"degree budget {n_deg}")
+        seg_start = np.concatenate([[0], np.cumsum(counts)])[:-1]
+        pos = np.arange(t0) - seg_start[dsts]
+        nbr_trip[dsts, pos] = np.arange(t0)
+        nbr_mask[dsts, pos] = True
+    return nbr_trip, nbr_mask
 
 
 def _pad_to(a: np.ndarray, n: int) -> np.ndarray:
@@ -590,14 +649,17 @@ def batch_iterator(
     batch_size: int,
     budgets: Optional[Budgets] = None,
     targets: Optional[np.ndarray] = None,
+    with_triplets: bool = False,
 ) -> Iterator[GraphBatch]:
     """Yield fixed-shape GraphBatches over `graphs` in order; the last one
     is padded with empty graphs up to `batch_size`. `targets` (one per
-    graph) overrides the graphs' own `y[0]`."""
+    graph) overrides the graphs' own `y[0]`; `with_triplets` as in
+    `pad_graphs`."""
     if budgets is None:
         budgets = pad_budget_for(graphs, batch_size)
     for lo in range(0, len(graphs), batch_size):
         chunk = graphs[lo:lo + batch_size]
         sub = (None if targets is None
                else np.asarray(targets[lo:lo + len(chunk)]))
-        yield pad_graphs(chunk, budgets, n_graph=batch_size, targets=sub)
+        yield pad_graphs(chunk, budgets, n_graph=batch_size, targets=sub,
+                         with_triplets=with_triplets)

@@ -21,7 +21,9 @@ weights are evaluated unless --use-live-params. Prints one JSON line
 stderr.
 --data featurizes an xyz file as the training CLI does (--backend,
 --cache-dir, --limit; `load_dataset`) before anything touches the card.
-Layouts other than blocked are not ported yet (ROADMAP A8b).
+--layout segment|padded|blocked evaluates in that attention layout,
+whatever layout the run trained in (evaluate.py:99): one parameter set
+serves all three.
 """
 
 from __future__ import annotations
@@ -80,6 +82,7 @@ def absolute_error(model, graphs, targets, batch_size: int):
     import torch
 
     from x2gnn_tpu_torch.data.batching import batch_iterator, pad_budget_for
+    from x2gnn_tpu_torch.models.x2gnn import needs_triplets
     from x2gnn_tpu_torch.train.loss import masked_mae
 
     device = next(model.parameters()).device
@@ -87,7 +90,9 @@ def absolute_error(model, graphs, targets, batch_size: int):
     budgets = pad_budget_for(graphs, batch_size)
     with torch.inference_mode():
         for batch in batch_iterator(graphs, batch_size, budgets=budgets,
-                                    targets=targets):
+                                    targets=targets,
+                                    with_triplets=needs_triplets(
+                                        model.config)):
             b = batch.to(device)
             total += float(masked_mae(model(b), b.y, mask=b.graph_mask))
             count += int(batch.graph_mask.sum())
@@ -96,9 +101,6 @@ def absolute_error(model, graphs, targets, batch_size: int):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.layout != "blocked":
-        raise NotImplementedError(
-            f"--layout {args.layout} is not ported yet (ROADMAP A8b)")
 
     from x2gnn_tpu_torch.config import ModelConfig, TrainConfig
     from x2gnn_tpu_torch.data.featurize import check_basis_compatible

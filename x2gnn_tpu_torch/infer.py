@@ -9,6 +9,7 @@ ckpt_last.pt, args.json and standardization.json) or from one checkpoint
 (`from_checkpoint`), on the EMA weights by default:
 
     pred = Predictor.from_run("runs/u0")         # on the card
+    pred = Predictor.from_run("runs/u0", layout="segment")  # another layout
     energies = pred.predict(graphs)              # featurized MolGraphs
     energies = pred.predict_xyz("mols.xyz", backend="native6311")
 
@@ -19,6 +20,7 @@ the run's provenance.json (x2gnn_tpu/infer.py:209-256).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import Optional, Sequence
@@ -32,6 +34,7 @@ from x2gnn_tpu_torch.data.batching import (
     Budgets, batch_iterator, pad_budget_for)
 from x2gnn_tpu_torch.data.graphs import MolGraph
 from x2gnn_tpu_torch.device import resolve_device
+from x2gnn_tpu_torch.models.x2gnn import X2GNN, needs_triplets
 
 
 def _round_up_pow2(v: int, floor: int = 8) -> int:
@@ -75,7 +78,6 @@ class Predictor:
         the checkpoint `ckpt_path`; `model_cfg` defaults to the args.json
         beside it. A flat EMA (fused_update runs) is cut back into the
         parameters (x2gnn_tpu/infer.py:157-177)."""
-        from x2gnn_tpu_torch.models.x2gnn import X2GNN
         from x2gnn_tpu_torch.train.checkpoint import restore_checkpoint
         from x2gnn_tpu_torch.weights import load_parameter_list
 
@@ -92,12 +94,16 @@ class Predictor:
 
     @classmethod
     def from_run(cls, workdir: str, use_ema: bool = True,
-                 **kw) -> "Predictor":
+                 layout: Optional[str] = None, **kw) -> "Predictor":
         """Restore a training workdir: args.json, standardization.json
         and provenance.json (if any), and ckpt_best.pt, else
         ckpt_last.pt (ckpt_best exists only from ckpt_after_epoch on)
-        (x2gnn_tpu/infer.py:179-206)."""
+        (x2gnn_tpu/infer.py:179-206). `layout` serves the run's weights
+        in another attention layout than it trained in (one parameter set
+        serves all three)."""
         mcfg, _ = load_run_configs(os.path.join(workdir, "args.json"))
+        if layout is not None:
+            mcfg = dataclasses.replace(mcfg, attention_layout=layout)
         stats = None
         stats_path = os.path.join(workdir, "standardization.json")
         if os.path.exists(stats_path):
@@ -125,7 +131,9 @@ class Predictor:
         budgets = quantize_budgets(pad_budget_for(graphs, bs))
         out = []
         with torch.inference_mode():
-            for batch in batch_iterator(graphs, bs, budgets=budgets):
+            for batch in batch_iterator(
+                    graphs, bs, budgets=budgets,
+                    with_triplets=needs_triplets(self.mcfg)):
                 pred = self.model(batch.to(self.device)).cpu().numpy()
                 out.append(pred[batch.graph_mask])
         pred = np.concatenate(out) if out else np.zeros(0, np.float32)

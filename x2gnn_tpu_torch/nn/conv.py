@@ -27,6 +27,17 @@ and lin_sbf stay float32. `x_blk * lin_rbf(...)` promotes to float32, so
 the injective gather runs in float32 and lin_key/lin_value cast again; q,
 k, v and e reach the kernels in bf16 storage (their per-window cuts too)
 and the attention output is float32.
+
+The flat conv takes per-edge rows (E, C), the per-triplet 2D basis and
+edge attributes, and the batch's `ops.attention.TripletTables`, and runs
+`segment_attention` or `padded_attention`. Its `dtype` also covers
+lin_sbf (a plain dense layer there) and the attention itself, as the
+reference's flat conv computes them in it (:420-501); the output is
+float32 after the float32 skip. Dropout takes the same canonical
+pair-space mask as the blocked conv, cut per triplet through
+`drop_pair_pos` (:129-143, :153-165), so one mask drops the same weights
+in all three layouts. The flat conv draws no mask of its own:
+`X2GNN.forward` draws every conv's mask and hands it in.
 """
 
 from __future__ import annotations
@@ -40,7 +51,9 @@ from torch import nn
 from x2gnn_tpu_torch.nn.init import glorot_orthogonal_
 from x2gnn_tpu_torch.nn.layers import Dense, TorchDense
 from x2gnn_tpu_torch.ops import attention as attention_ops
-from x2gnn_tpu_torch.ops.attention import injective_gather
+from x2gnn_tpu_torch.ops.attention import (
+    TripletTables, beta_gate, injective_gather, padded_attention,
+    segment_attention)
 from x2gnn_tpu_torch.ops.blocked_attn import blocked_attention
 
 
@@ -57,19 +70,23 @@ class LinearParams(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features_out))
 
 
-class BlockedEdgeAttentionConv(nn.Module):
+class _ConvParameters(nn.Module):
+    """The parameters both convs hold, in the reference's names and one
+    registration order: lin_rbf, lin_query, lin_edge (emb_dim inputs: the
+    embedding width in v1, in_channels in v2), lin_sbf (a flax-layout
+    (L*K, C) kernel and bias), lin_key, lin_value, lin_skip and, with
+    use_beta, lin_beta (3C -> 1, no bias, float32)."""
+
     def __init__(self, channels: int, heads: int = 16, sbf_l: int = 7,
                  sbf_k: int = 6, rbf_dim: int = 6, emb_dim: int = 128,
                  dropout: float = 0.0, use_beta: bool = False,
                  generator: Optional[torch.Generator] = None,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if use_beta:
-            raise NotImplementedError(
-                "the beta-gated skip is not ported yet (ROADMAP A8b)")
         self.channels, self.heads = channels, heads
         self.dropout = dropout
         self.sbf_l, self.sbf_k = sbf_l, sbf_k
+        self.dtype = dtype
         g = generator
         self.lin_rbf = Dense(rbf_dim, channels, use_bias=False, generator=g,
                              dtype=dtype)
@@ -84,7 +101,19 @@ class BlockedEdgeAttentionConv(nn.Module):
         self.lin_value = TorchDense(channels, channels, generator=g,
                                     dtype=dtype)
         self.lin_skip = TorchDense(channels, channels, generator=g)
+        self.lin_beta = (TorchDense(3 * channels, 1, use_bias=False,
+                                    generator=g) if use_beta else None)
 
+    def skip(self, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """The attention output plus the skip projection of the layer's
+        input, or with use_beta the two blended by the beta gate."""
+        skip = self.lin_skip(x)
+        if self.lin_beta is not None:
+            return beta_gate(out, skip, self.lin_beta)
+        return out + skip
+
+
+class BlockedEdgeAttentionConv(_ConvParameters):
     def forward(self, x_blk, rbf_blk, atom_edge_attr, out2in, in2out,
                 in_mask_flat, windows, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
@@ -132,8 +161,67 @@ class BlockedEdgeAttentionConv(nn.Module):
                 alphas.append(F.pad(a, (0, 0, 0, D - w.dk, 0, D - w.di)))
             pieces.append(F.pad(o, (0, 0, 0, D - w.di)) if w.di < D else o)
         out = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
-        out = out + self.lin_skip(x_blk)
+        out = self.skip(out, x_blk)
         if return_attention_weights:
             return out, (alphas[0] if len(alphas) == 1
                          else torch.cat(alphas))
         return out
+
+
+class EdgeAttentionConv(_ConvParameters):
+    """The flat-edge conv of the `segment` and `padded` layouts
+    (x2gnn_tpu/nn/conv.py:57-184); `layout` picks one."""
+
+    def __init__(self, channels: int, heads: int = 16,
+                 layout: str = "segment", **kw):
+        if layout not in ("segment", "padded"):
+            raise ValueError(f"layout={layout!r}: 'segment' or 'padded'")
+        super().__init__(channels, heads, **kw)
+        self.layout = layout
+
+    def forward(self, x, rbf, sbf, edge_attr, tables: TripletTables,
+                dropout_mask: Optional[torch.Tensor] = None,
+                drop_pair_pos: Optional[torch.Tensor] = None,
+                return_attention_weights: bool = False):
+        """x: (E, C) line-graph node (= atom-graph edge) features; rbf:
+        (E, K) radial basis per edge; sbf: (T, L*K) per-triplet 2D basis;
+        edge_attr: (T, emb) media-atom attributes per triplet; tables: the
+        batch's `triplet_tables`. The keep mask `dropout_mask`
+        (N, D, D, H), in the canonical pair space (`X2GNN.forward` draws
+        it), is cut per triplet at `drop_pair_pos`
+        (`ops.attention.triplet_pair_positions`). Returns (E, C) float32,
+        or with return_attention_weights (segment layout only)
+        (out, (T, H))."""
+        E = x.shape[0]
+        H = self.heads
+        C = self.channels // H
+        dt = self.dtype
+        if return_attention_weights and self.layout != "segment":
+            raise ValueError("attention weights are only available in the "
+                             "segment layout (x2gnn_tpu/nn/conv.py:511-515)")
+        x_src = x * self.lin_rbf(rbf)
+        q = self.lin_query(x).reshape(E, H, C)
+        k = self.lin_key(x_src).reshape(E, H, C)
+        v = self.lin_value(x_src).reshape(E, H, C)
+        e = self.lin_edge(edge_attr).reshape(-1, H, C)
+        kernel, bias = self.lin_sbf.kernel, self.lin_sbf.bias
+        if dt is not None:
+            sbf, kernel, bias = sbf.to(dt), kernel.to(dt), bias.to(dt)
+        s = (sbf @ kernel + bias).reshape(-1, H, C)
+
+        keep = None
+        if dropout_mask is not None:
+            per_trip = dropout_mask.reshape(-1, H)[drop_pair_pos]
+            keep = (per_trip if self.layout == "segment"
+                    else per_trip[tables.nbr_trip])
+
+        weights = None
+        if self.layout == "padded":
+            out = padded_attention(q, k, v, e, s, tables, dropout_mask=keep)
+        else:
+            out = segment_attention(q, k, v, e, s, tables, dropout_mask=keep,
+                                    return_weights=return_attention_weights)
+            if return_attention_weights:
+                out, weights = out
+        out = self.skip(out.reshape(E, self.channels), x)
+        return (out, weights) if return_attention_weights else out

@@ -1,6 +1,6 @@
 """Closed-form basis math: envelope, spherical Bessel functions, Legendre
-harmonics and the radial factor of the 2D basis
-(x2gnn_tpu/ops/basis.py:28-167).
+harmonics, the radial factor of the 2D basis and the per-triplet 2D basis
+of the flat layouts (x2gnn_tpu/ops/basis.py:28-198).
 
 Only the Bessel zeros are computed on the host (scipy); the rest are plain
 tensor recurrences.
@@ -122,3 +122,20 @@ def sbf_radial_part(
     if edge_mask is not None:
         rbf_env = torch.where(edge_mask[:, None, None], rbf_env, 0.0)
     return rbf_env
+
+
+def sbf_2d(distances: torch.Tensor, theta: torch.Tensor,
+           src_edge_ids: torch.Tensor, num_spherical: int, num_radial: int,
+           cutoff: float = 5.0, envelope_exponent: int = 5,
+           edge_mask: torch.Tensor = None) -> torch.Tensor:
+    """Per-triplet spherical-Bessel x Legendre-harmonic features (T, L*K)
+    (x2gnn_tpu/ops/basis.py:170-198): out[t, l*K + n] = rbf_env[src_t, l,
+    n] * Y_l(theta_t), rbf_env as `sbf_radial_part` of the per-edge
+    `distances` (E,), `src_edge_ids` the triplets' j->k edges. Pad edges
+    should come clamped to d ~ 1 and masked by `edge_mask`."""
+    rbf_env = sbf_radial_part(distances, num_spherical, num_radial, cutoff,
+                              envelope_exponent, edge_mask)
+    rbf_env = rbf_env.reshape(rbf_env.shape[0], num_spherical * num_radial)
+    cbf = legendre_cos_harmonics(theta, num_spherical)      # (T, L)
+    cbf = torch.repeat_interleave(cbf, num_radial, dim=-1)  # (T, L*K)
+    return rbf_env[src_edge_ids] * cbf

@@ -19,6 +19,7 @@ train.py (:168-358):
         --accum-steps 2 ...          # the precision and memory options
     python -m x2gnn_tpu_torch.train --device cpu --synthetic 24 \\
         --epochs 2 --batch-size 8 --workdir /tmp/run   # on the CPU
+    python -m x2gnn_tpu_torch.train --layout segment ...  # another layout
 
 Data: --synthetic N molecules, made with the model's edge feature width
 and cutoff; --data, a concatenated xyz file featurized by `load_dataset`
@@ -31,9 +32,10 @@ from `prepare_targets`. Featurizing happens before the run touches the
 card.
 
 The model is `ModelConfig` (or the `model` block of --config) in the
-blocked layout, with random weights from seed 0; the target picks its
-readout (atomwise for the extensive targets 6-11, else molwise_mean), and
-its attention dropout trains with a per-step mask. --resume CKPT continues
+--layout attention layout (blocked by default, as train.py:35-37; segment
+and padded run the flat-edge model), with random weights from seed 0; the
+target picks its readout (atomwise for the extensive targets 6-11, else
+molwise_mean), and its attention dropout trains with a per-step mask. --resume CKPT continues
 from a checkpoint; --auto-resume from the newest `ckpt_*.pt` of the
 workdir if there is one. A resumed run trains the epochs left,
 max_epoch - step // steps_per_epoch, and numbers them on from there.
@@ -52,9 +54,9 @@ and exits 3 if the two differ in any bit.
 Other flags: --dropout, --target, --epochs, --batch-size, --max-lr,
 --scheduler, --warmup-steps, --ema-decay, --patience, --fused-update,
 --atomref-fit, --standardize, --ckpt-every, --ckpt-after-epoch,
---bucket-shapes, --pack-budget, --pack-mixed, --device. --layout other
-than blocked (ROADMAP A8b), --data-parallel, --edge-partition and
---dp-groups (A10) raise NotImplementedError.
+--bucket-shapes, --pack-budget, --pack-mixed, --device. --data-parallel,
+--edge-partition and --dp-groups (ROADMAP A10) raise
+NotImplementedError.
 
 Writes provenance.json (the data's basis tag), atomref.json
 (--atomref-fit), standardization.json (--standardize), and through
@@ -76,9 +78,8 @@ _UNPORTED = {
     "data_parallel": ("--data-parallel", "A10"),
     "edge_partition": ("--edge-partition", "A10"),
     "dp_groups": ("--dp-groups", "A10"),
-    "layout": ("--layout segment|padded", "A8b"),
 }
-_OFF = (None, False, 0, "blocked")
+_OFF = (None, False, 0)
 
 
 def parse_args(argv=None):
@@ -171,7 +172,10 @@ def parse_args(argv=None):
     p.add_argument("--edge-partition", default=None)
     p.add_argument("--dp-groups", type=int, default=0)
     p.add_argument("--layout", choices=["segment", "padded", "blocked"],
-                   default="blocked")
+                   default="blocked",
+                   help="attention layout: blocked (the fused kernels), "
+                        "segment (triplet rows) or padded (neighbour "
+                        "tables)")
     return p.parse_args(argv)
 
 
@@ -221,7 +225,7 @@ def main(argv=None) -> int:
     readout = ("atomwise" if tcfg.target in EXTENSIVE_TARGETS
                else "molwise_mean")
     mcfg = dataclasses.replace(mcfg, readout=readout,
-                               attention_layout="blocked")
+                               attention_layout=args.layout)
     if args.compute_dtype is not None:
         mcfg = dataclasses.replace(mcfg, compute_dtype=args.compute_dtype)
     if args.remat:

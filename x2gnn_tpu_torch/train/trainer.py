@@ -10,8 +10,10 @@ packing into one shape, `bucket_shapes` groups it by size into a few
 shapes (`pack_budget` fills each batch to its class budget), and the
 training batches are then visited in a per-(seed, epoch) shuffled order
 (:332-345). With the default budgets, and under `pack_mixed`, batches are
-degree-sorted and carry degree tiers, so each conv runs one attention
-kernel per tier. `cache_batches` chooses where the batches live, as in
+degree-sorted and carry degree tiers, so each blocked conv runs one
+attention kernel per tier. The segment and padded layouts' batches carry
+the triplet arrays and neighbour tables as well (`pad_graphs(...,
+with_triplets=True)`, trainer.py:122-128). `cache_batches` chooses where the batches live, as in
 the reference (trainer.py:170-173, :347-420): True keeps them on the
 device across epochs, each copied to the card once per run (the default
 for datasets up to 20,000 molecules); False assembles each epoch's
@@ -22,8 +24,9 @@ stream of its own, ahead of the step that reads it; that step's stream
 waits for the copy. With `feat_dtype` "float16" or "int8" (per-edge
 scales) the batches hold the edge features in that dtype (`cast_feat`,
 trainer.py:309-330), which the model upcasts at entry.
-Each step runs the model forward, autograd's backward (the attention's
-through the CUDA backward kernel), then clip, Adam and the EMA, with the
+Each step runs the model forward, autograd's backward (the blocked
+attention's through the CUDA backward kernel), then clip, Adam and the
+EMA, with the
 non-finite skip decided on the device. With attention dropout, a step
 draws its masks from a generator seeded by (random_seed, step), as the
 reference folds the step into its dropout key (:244-254): a step repeats
@@ -57,6 +60,7 @@ from x2gnn_tpu_torch.data.batching import (
     size_bucketed_plan)
 from x2gnn_tpu_torch.data.prefetch import prefetch
 from x2gnn_tpu_torch.device import resolve_device
+from x2gnn_tpu_torch.models.x2gnn import needs_triplets
 from x2gnn_tpu_torch.train.checkpoint import (
     restore_checkpoint, save_checkpoint)
 from x2gnn_tpu_torch.train.ema import EmaState, ema_init, unflatten
@@ -179,6 +183,7 @@ class Trainer:
         self.workdir = workdir
         self.std = std
         self.feat_dtype = feat_dtype
+        self._with_triplets = needs_triplets(model_cfg)
         self.optimizer = Optimizer(train_cfg)
 
         n = len(self.graphs)
@@ -230,7 +235,9 @@ class Trainer:
         else:
             pred = self.model(batch)
         loss = smooth_l1_loss(pred, batch.y, mask=batch.graph_mask)
-        grads = torch.autograd.grad(loss, self._leaves)
+        # v2 leaves the atom embedding unused: zeros, as the reference's
+        grads = torch.autograd.grad(loss, self._leaves,
+                                    materialize_grads=True)
         if self._flat is not None:
             grads = [torch.cat([g.reshape(-1) for g in grads])]
         return apply_update_skip_nonfinite(state, loss.detach(), grads,
@@ -366,7 +373,8 @@ class Trainer:
         chunk, budgets, n_graph = entry
         return cast_feat(pad_graphs(
             [self.graphs[i] for i in chunk], budgets, n_graph=n_graph,
-            targets=self.targets[chunk]), self.feat_dtype)
+            targets=self.targets[chunk], with_triplets=self._with_triplets),
+            self.feat_dtype)
 
     def batches(self, idx) -> List[GraphBatch]:
         """The device cache (cache_batches=True): the device batches of
