@@ -2,8 +2,8 @@
 """Chip smoke test of the PyTorch/H100 port: builds the port's CUDA
 kernels, holds each against its plain PyTorch version on the card, serves
 the flagship X2GNN through the port's Predictor, trains it through the
-port's Trainer, in all three attention layouts and both variants, and
-times them.
+port's Trainer, in all three attention layouts and both variants and on
+its parallel paths, and times them.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -163,7 +163,23 @@ Phases, each of which raises on failure (exit code != 0):
      run in every layout (the MAEs within 1e-4 relative); (d) the three
      layouts' forwards under one set of explicit masks at rate 0.1, within
      (b)'s tolerance; (e) the segment layout's attention weights of conv_0
-     against the blocked kernel's alpha (`pairs_to_triplet_weights`).
+     against the blocked kernel's alpha (`pairs_to_triplet_weights`);
+ 13. the parallel paths on the packed batches (N=744, D=32): (a) data
+     parallelism at world size 1 over NCCL, the all-reduced gradient
+     against the plain step's within the gradient gates, a step bitwise
+     on a rerun, 32 launches of each kernel per step; (b) two spawned
+     processes sharing the card over gloo, two full steps and a ragged
+     one (a filler), each held to one process stepping the group's
+     molecules, both ranks' parameters the same bits; (c) edge
+     partitioning (allgather, ring) and DP x EP (1 x 1) at world size 1
+     against the blocked model (predictions, gradients, ring bitwise the
+     allgather), 4 launches of each kernel per EP step (the EP window
+     is phase 5's one window, checked and timed there), the gap recipe's
+     dropout under the same masks, an epoch of streamed EP batches equal to the cached
+     one; valid pairs per rank at 1, 2 and 4 EP ranks; (d) the training
+     CLI with --data-parallel and --edge-partition ring under
+     `python -m torch.distributed.run --nproc-per-node 1`; (e) ms per
+     packed step of the plain, DP and EP trainers in turns.
 Each row of the kernels line takes its launches from a path that launches
 its shape, with the counts zeroed just before that path.
 The line before the last is a JSON object {"kernels": [...]}; the last
@@ -2865,6 +2881,427 @@ def layout_clis(card, device, train_graphs, kept):
             raise AssertionError(f"evaluate --layout {layout}: MAE differs")
 
 
+# ---- phase 13: the parallel paths (DP, EP, DP x EP) ----
+
+def held_grads(tag, got, ref):
+    """Gradients {name: tensor} held to the card-vs-CPU gates: each within
+    GRAD_RTOL of itself plus GRAD_ATOL of its largest magnitude; the
+    lin_key biases, 0 in exact arithmetic (check_step_on_card_and_cpu),
+    below 1e-6 of the largest gradient. Returns the largest
+    max|err|/max|g|."""
+    import torch
+    top = max(float(t.abs().max()) for t in ref.values())
+    worst = (0.0, "")
+    for name, r in ref.items():
+        g = got[name]
+        if name.endswith("lin_key.bias"):
+            if max(float(g.abs().max()), float(r.abs().max())) >= 1e-6 * top:
+                raise AssertionError(f"{tag}: {name} not ~0")
+            continue
+        err = (g - r).abs()
+        limit = GRAD_ATOL * float(r.abs().max()) + GRAD_RTOL * r.abs()
+        if (err > limit).any() or not torch.isfinite(g).all():
+            raise AssertionError(f"{tag}: gradient of {name} differs (max "
+                                 f"abs {float(err.max()):.3e})")
+        worst = max(worst, (float(err.max()) / max(float(r.abs().max()),
+                                                   1e-30), name))
+    log(f"[{tag}] {len(ref)} gradients agree within {GRAD_RTOL} relative + "
+        f"{GRAD_ATOL} of each one's largest magnitude; largest max|err|/"
+        f"max|g| {worst[0]:.3e} ({worst[1]})")
+    return worst[0]
+
+
+def plain_grads(model, batch, masks=None):
+    """(loss, {name: gradient}) of one process's step on `batch`."""
+    import torch
+    from x2gnn_tpu_torch.train.loss import smooth_l1_loss
+    pred = model(batch, dropout_masks=masks)
+    loss = smooth_l1_loss(pred, batch.y, mask=batch.graph_mask)
+    g = torch.autograd.grad(loss, list(model.parameters()),
+                            materialize_grads=True)
+    return loss.detach(), {n: t for (n, _), t in
+                           zip(model.named_parameters(), g)}
+
+
+def split_grads(flat, model):
+    """{name: view of `flat`} in the model's parameter order."""
+    from x2gnn_tpu_torch.train.ema import unflatten
+    leaves = list(model.parameters())
+    return {n: t for (n, _), t in zip(model.named_parameters(),
+                                      unflatten(flat, leaves))}
+
+
+def dp_gloo_rank(rank, world, store, device, batches, mcfg, tcfg,
+                 out_dir):
+    """Phase 13b, one of `world` processes sharing the card over gloo: the
+    flagship from seed 0 takes one data-parallel step per group of
+    `world` batches (the last group ragged). Before each step rank 0
+    computes, alone, the count-weighted mean of each real batch's
+    gradient (one process stepping the group's molecules) and holds the
+    all-reduced gradient to it; every rank records a digest of its
+    parameters after each step."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from x2gnn_tpu_torch.device import resolve_device
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    from x2gnn_tpu_torch.parallel import (
+        dp_batch_iterator, make_dp_train_step, make_mesh)
+    from x2gnn_tpu_torch.parallel.data_parallel import reduced_gradients
+    from x2gnn_tpu_torch.train.ema import ema_init
+    from x2gnn_tpu_torch.train.loss import smooth_l1_loss
+    from x2gnn_tpu_torch.train.optim import Optimizer
+    from x2gnn_tpu_torch.train.trainer import TrainState
+
+    device = resolve_device(device, 0)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh()
+        model = X2GNN(mcfg, torch.Generator().manual_seed(0), device=device)
+        leaves = list(model.parameters())
+        opt = Optimizer(tcfg)
+        zero = torch.zeros((), dtype=torch.int32, device=device)
+        state = TrainState(leaves, opt.init(leaves), ema_init(leaves), zero,
+                           zero.clone())
+        step = make_dp_train_step(model, opt, tcfg.ema_decay, mesh)
+        records = []
+        for lo in range(0, len(batches), world):
+            group = batches[lo:lo + world]
+            mine = next(dp_batch_iterator(group, world, rank)).to(device)
+            loss = smooth_l1_loss(model(mine), mine.y, mask=mine.graph_mask)
+            flat, gloss, total = reduced_gradients(
+                loss, leaves, mine.graph_mask.sum())
+            rec = {"real": int(total), "loss": float(gloss),
+                   "filler": not bool(mine.graph_mask.any())}
+            if rank == 0:
+                ref, n, ref_loss = None, 0, 0.0
+                for b in group:
+                    b = b.to(device)
+                    cnt = int(b.graph_mask.sum())
+                    lb, g = plain_grads(model, b)
+                    ref = ({k: v * cnt for k, v in g.items()} if ref is None
+                           else {k: ref[k] + v * cnt for k, v in g.items()})
+                    n, ref_loss = n + cnt, ref_loss + float(lb) * cnt
+                rec["worst"] = held_grads(
+                    f"DP 2 ranks (gloo) step {len(records) + 1}",
+                    split_grads(flat, model),
+                    {k: v / n for k, v in ref.items()})
+                want = ref_loss / n
+                if abs(float(gloss) - want) > 1e-5 * abs(want):
+                    raise AssertionError(f"DP 2 ranks: loss {float(gloss)} "
+                                         f"against {want}")
+            state, _, _ = step(state, mine)
+            flat_p = torch.cat([p.detach().reshape(-1) for p in leaves])
+            rec["digest"] = hashlib.sha256(
+                flat_p.cpu().numpy().tobytes()).hexdigest()
+            records.append(rec)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(records, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_two_ranks_on_one_card(device, batches, mcfg, tcfg):
+    """Phase 13b: two processes share the card over gloo (NCCL refuses
+    two ranks on one GPU; gloo all-reduces CUDA tensors): two full steps
+    and one whose group has one real batch and a filler, each held to one
+    process stepping the group's molecules, both ranks' parameters the
+    same bits after each step."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=dp_gloo_rank,
+                             args=(r, 2, os.path.join(work, "store"),
+                                   str(device), batches, mcfg, tcfg, work))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + 300
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0]:
+            raise AssertionError(f"DP 2 ranks: exit codes {codes}")
+        recs = []
+        for r in range(2):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+    for i, (a, b) in enumerate(zip(*recs)):
+        same = "the same bits" if a["digest"] == b["digest"] else "DIFFER"
+        log(f"[parallel dp gloo] step {i + 1}: {a['real']} real graphs, "
+            f"loss {a['loss']:.7f}, rank 1 "
+            f"{'a filler' if b['filler'] else 'a batch'}, parameters "
+            f"{same} on both ranks; largest max|err|/max|g| "
+            f"{a['worst']:.3e}")
+        if a["digest"] != b["digest"] or a["loss"] != b["loss"]:
+            raise AssertionError(f"DP 2 ranks: step {i + 1} differs across "
+                                 "ranks")
+    if not recs[1][-1]["filler"]:
+        raise AssertionError("DP 2 ranks: the last group is not ragged")
+    log(f"[parallel dp gloo] 2 processes on one card, {len(recs[0])} steps:"
+        f" {time.perf_counter() - t0:.1f} s")
+
+
+def ep_valid_pairs(host_batch, worlds=(1, 2, 4)):
+    """Valid (query, key) pairs of each rank's piece of the batch's atoms
+    at each EP size: the load each rank's kernel gets (contiguous pieces
+    of degree-sorted atoms; host arithmetic, no card)."""
+    import numpy as np
+    from x2gnn_tpu_torch.parallel import make_ep_batch
+    out = {}
+    for w in worlds:
+        epb = make_ep_batch(host_batch, w)
+        per = []
+        for r in range(w):
+            p = epb.shard(r, w)
+            valid = (p.in_mask[:, :, None] & p.out_mask[:, None, :]
+                     & (p.edge_src_blk[:, :, None]
+                        != p.out_dst_blk[:, None, :]))
+            per.append(int(np.sum(valid)))
+        out[w] = per
+        log(f"[parallel ep] {w} ranks of N={epb.numbers.shape[0]}: valid "
+            f"pairs per rank {per}")
+    return out
+
+
+def parallel_paths(card, device, train_graphs, mcfg, tcfg, packed,
+                   one_window):
+    """Phase 13, on the flagship at full width over the packed recipe's
+    batches (N=744, D=32): (a) data parallelism at world size 1 over NCCL
+    against the plain Trainer; (b) two ranks on the card over gloo; (c)
+    edge partitioning (allgather, ring) and DP x EP (1 x 1) at world size
+    1 against the blocked model, with the gap recipe's dropout; (d) the
+    training CLI under torch.distributed.run; (e) ms per step in turns
+    with the plain Trainer. Returns the EP window's kernel rows: the
+    first packed batch as one window, which phase 5 checked and timed
+    (`one_window`, its forward, backward and reduce records), with the
+    launches of one EP step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    from x2gnn_tpu_torch.ops.blocked_attn import reset_launch_counts
+    from x2gnn_tpu_torch.parallel import (
+        initialize_distributed, make_ep_batch, make_ep_forward,
+        make_hybrid_forward, make_hybrid_mesh, make_mesh, shard_ep_batch,
+        shard_hybrid_batch, stack_ep_batches)
+    from x2gnn_tpu_torch.parallel.data_parallel import reduced_gradients
+    from x2gnn_tpu_torch.train.loss import smooth_l1_loss
+    from x2gnn_tpu_torch.train.trainer import Trainer
+    from x2gnn_tpu_torch.utils.determinism import (
+        check_train_step_determinism)
+
+    t13 = time.perf_counter()
+    targets = np.array([g.y[0] for g in train_graphs], np.float32)
+    hosts = [packed._assemble(e)
+             for e in packed._plan_of(packed.train_idx)[:5]]
+    hb = hosts[0]
+    N, D = hb.in_edges.shape
+    L = mcfg.conv_layers
+
+    # (b) first, before this process joins a group of its own
+    dp_two_ranks_on_one_card(device, hosts, mcfg, tcfg)
+
+    initialize_distributed(device=device)
+    work = tempfile.TemporaryDirectory()
+    try:
+        mesh = make_mesh()
+        log(f"[parallel] world size {dist.get_world_size()} over "
+            f"{dist.get_backend()}, mesh {mesh.axis_names} {mesh.shape}")
+
+        def trainer(tag, **kw):
+            model = X2GNN(mcfg, torch.Generator().manual_seed(0),
+                          device=device)
+            t = Trainer(model, mcfg, tcfg, train_graphs, targets,
+                        workdir=os.path.join(work.name, tag),
+                        device=device, **kw)
+            cached = kw.get("cache_batches", True) is True
+            return (t, t.init_state(),
+                    t.batches(t.train_idx) if cached else None)
+
+        # ---- (a) data parallelism, world size 1, NCCL ----
+        plain, pstate, pbatches = trainer("plain")
+        dp, dstate, dbatches = trainer("dp", mesh=mesh)
+        b = dbatches[0]
+        if (len(dbatches) != len(pbatches)
+                or not torch.equal(b.edge_feat, pbatches[0].edge_feat)):
+            raise AssertionError("DP: the rank's batches are not the plain "
+                                 "Trainer's")
+        ref_loss, ref = plain_grads(plain.model, b)
+        loss = smooth_l1_loss(dp.model(b), b.y, mask=b.graph_mask)
+        flat, gloss, _ = reduced_gradients(loss, list(dp.model.parameters()),
+                                           b.graph_mask.sum())
+        log(f"[parallel dp] loss {float(gloss):.7f} against the plain step's "
+            f"{float(ref_loss):.7f}")
+        if abs(float(gloss) - float(ref_loss)) > 1e-6 * abs(float(ref_loss)):
+            raise AssertionError("DP: the loss differs from the plain step's")
+        held_grads("parallel dp, world 1 vs the plain step",
+                   split_grads(flat, dp.model), ref)
+        report = check_train_step_determinism(dp, dstate)
+        if not report["deterministic"]:
+            raise AssertionError(f"DP: a rerun differs: "
+                                 f"{report['mismatches'][:5]}")
+        reset_launch_counts()
+        dstate, _ = dp.train_step(dstate, b, 0)
+        torch.cuda.synchronize()
+        dp_counts = launch_counts()
+        expect = L * len(windows_of(b))
+        log(f"[parallel dp] a step bitwise on a rerun; launches per step "
+            f"{dp_counts} (expected {expect} each: {L} layers x "
+            f"{len(windows_of(b))} tiers)")
+        if dp_counts != {"fwd": expect, "bwd": expect, "reduce": expect}:
+            raise AssertionError(f"DP: launches {dp_counts}")
+
+        # ---- (c) edge partitioning and DP x EP at world size 1 ----
+        valid = ep_valid_pairs(hb)
+        model = plain.model
+        hd = hb.to(device)
+        with torch.no_grad():
+            ref_pred = model(hd)
+        epb = make_ep_batch(hb, 1)
+        local = shard_ep_batch(epb, mesh, device)
+        hmesh = make_hybrid_mesh(1, 1)
+        hlocal = shard_hybrid_batch(stack_ep_batches([epb]), hmesh, device)
+        preds = {}
+        with torch.no_grad():
+            for mode in ("allgather", "ring"):
+                preds[mode] = make_ep_forward(mesh, mode)(model, local)
+            preds["hybrid"] = make_hybrid_forward(hmesh, "ring")(
+                model, hlocal)
+        for tag, p in preds.items():
+            err = (p - ref_pred).abs()
+            log(f"[parallel ep {tag}] predictions max_abs "
+                f"{float(err.max()):.3e} against the blocked model (|pred| "
+                f"max {float(ref_pred.abs().max()):.3e})")
+            if (err > MODEL_ATOL + MODEL_RTOL * ref_pred.abs()).any():
+                raise AssertionError(f"EP {tag}: predictions differ")
+        if not torch.equal(preds["ring"], preds["allgather"]):
+            raise AssertionError("EP: ring and allgather differ")
+        ref_loss, ref = plain_grads(model, hd)
+        for mode in ("allgather", "ring"):
+            reset_launch_counts()
+            pred = make_ep_forward(mesh, mode)(model, local)
+            loss = smooth_l1_loss(pred, local.y, mask=local.graph_mask)
+            flat, _, _ = reduced_gradients(loss, list(model.parameters()),
+                                           local.graph_mask.sum())
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            held_grads(f"parallel ep {mode} vs the blocked model",
+                       split_grads(flat, model), ref)
+            if counts != {"fwd": L, "bwd": L, "reduce": L}:
+                raise AssertionError(f"EP {mode}: launches {counts}")
+        # the gap recipe's dropout on the EP path, under the same masks
+        gcfg, _ = gap_training_configs()
+        gmodel = X2GNN(gcfg, torch.Generator().manual_seed(0), device=device)
+        masks = [keep_mask((N, D, D, gcfg.heads), gcfg.dropout, 70 + i,
+                           device) for i in range(gcfg.conv_layers)]
+        with torch.no_grad():
+            gref = gmodel(hd, dropout_masks=masks)
+            reset_launch_counts()
+            gpred = make_ep_forward(mesh, "ring")(gmodel, local,
+                                                  dropout_masks=masks)
+        drops = per_variant(launch_shapes()["fwd_variants"])
+        err = (gpred - gref).abs()
+        log(f"[parallel ep gap] dropout {gcfg.dropout}, {gcfg.readout}: "
+            f"max_abs {float(err.max()):.3e} against the blocked model under "
+            f"the same masks; forward launches by instance {drops}")
+        if (err > MODEL_ATOL + MODEL_RTOL * gref.abs()).any() or \
+                drops != {"drop": gcfg.conv_layers}:
+            raise AssertionError("EP gap: dropout forward differs")
+        # the EP trainers; one EP step's launches per rank
+        ep_trainers = {m: trainer(f"ep_{m}", mesh=mesh, edge_partition=m)
+                       for m in ("allgather", "ring")}
+        ep, estate, ebatches = ep_trainers["ring"]
+        reset_launch_counts()
+        estate, _ = ep.train_step(estate, ebatches[0], 0)
+        torch.cuda.synchronize()
+        ep_counts = launch_counts()
+        log(f"[parallel ep] one EP step's launches {ep_counts} (expected "
+            f"{L} each, one window per conv)")
+        if ep_counts != {"fwd": L, "bwd": L, "reduce": L}:
+            raise AssertionError(f"EP step: launches {ep_counts}")
+        # an epoch of EP batches assembled and streamed from the host
+        # (cache_batches off: each rank's piece pinned and copied on a
+        # stream of its own) against the same epoch on cached ones
+        fresh, fstate, fbatches = ep_trainers["allgather"]
+        streamed, sstate, _ = trainer("ep_streamed", mesh=mesh,
+                                      edge_partition="allgather",
+                                      cache_batches=False)
+        fstate, cached_loss = fresh.run_epoch(fstate, 0)
+        ep_trainers["allgather"] = (fresh, fstate, fbatches)
+        _, streamed_loss = streamed.run_epoch(sstate, 0)
+        log(f"[parallel ep] an epoch on streamed EP batches: loss "
+            f"{streamed_loss!r}, on cached ones {cached_loss!r}")
+        if streamed_loss != cached_loss:
+            raise AssertionError("EP: the streamed epoch differs")
+
+        # ---- (e) ms per step in turns ----
+        runs = {"plain": (plain, pstate, pbatches),
+                "dp": (dp, dstate, dbatches),
+                "ep allgather": ep_trainers["allgather"],
+                "ep ring": (ep, estate, ebatches)}
+        turns = {}
+        for name in ("plain", "dp", "ep allgather", "ep ring", "ep ring",
+                     "ep allgather", "dp", "plain"):
+            t, st, bs = runs[name]
+            ms, st, _ = step_ms(t, st, bs)
+            runs[name] = (t, st, bs)
+            turns.setdefault(name, []).append(ms)
+        log("[parallel] ms per packed step (median of 20, CUDA events, "
+            "cached batches), in turns: " + "; ".join(
+                f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in turns.items()))
+
+        # ---- (d) the training CLI under torch.distributed.run ----
+        for tag, flags in (("dp", ["--data-parallel"]),
+                           ("ep", ["--edge-partition", "ring"])):
+            wd = os.path.join(work.name, f"cli_{tag}")
+            proc = run_cli(["torch.distributed.run", "--standalone",
+                            "--nproc-per-node", "1", "-m",
+                            "x2gnn_tpu_torch.train", "--synthetic", "96",
+                            "--epochs", "1", "--config", FLAGSHIP_ARGS,
+                            "--pack-mixed", "--workdir", wd, *flags],
+                           f"parallel cli {tag}", timeout=300)
+            recs = read_records(wd)
+            backend = "nccl" if device.type == "cuda" else "gloo"
+            if (len(recs) != 1 or not np.isfinite(recs[0]["loss"])
+                    or f"over 1 ranks ({backend})" not in proc.stderr):
+                raise AssertionError(f"parallel cli {tag}: {recs}")
+            log(f"[parallel cli {tag}] 1 epoch: loss {recs[0]['loss']:.6f}, "
+                f"{recs[0]['molecules_per_sec']:.1f} molecules/s")
+    finally:
+        dist.destroy_process_group()
+        work.cleanup()
+    log(f"[phase 13] took {time.perf_counter() - t13:.1f} s; EP valid pairs "
+        f"per rank {valid}")
+    # the EP rank's window is phase 5's "packed one window"
+    if packed.batches(packed.train_idx)[0].in_edges.shape != (N, D):
+        raise AssertionError("EP: phase 5's one window is another batch")
+    ep_fwd, ep_bwd, ep_red = one_window
+    note = (f"EP window ({N}, {D}, {D}): the first packed batch on one "
+            "rank, checked and timed as phase 5's one window")
+    return [
+        {"name": "blocked_attn_fwd (EP window)", "route": "cuda",
+         "source": "x2gnn_tpu_torch/ops/csrc/blocked_attn_fwd.cu",
+         "replaces": f"{PALLAS}:166", "launches": ep_counts["fwd"],
+         "window": note, **ep_fwd},
+        {"name": "blocked_attn_bwd (EP window)", "route": "cuda",
+         "source": "x2gnn_tpu_torch/ops/csrc/blocked_attn_bwd.cu",
+         "replaces": f"{PALLAS}:198", "launches": ep_counts["bwd"],
+         "window": note, **ep_bwd},
+        {"name": "blocked_attn_bwd_reduce (EP window)", "route": "cuda",
+         "source": "x2gnn_tpu_torch/ops/csrc/blocked_attn_bwd.cu",
+         "replaces": f"{PALLAS}:271", "launches": ep_counts["reduce"],
+         "window": f"partials of the {note}", **ep_red}]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3009,9 +3446,10 @@ def main() -> int:
             f"packed tier {t}", window_args(packed_args, win), mcfg,
             seed=40 + t, fwd_timed=True, bwd_timed=True)
         tiers.append((win, fwd, bwd, red))
-    # the same batch as one window, the alternative the tiers replace (no
-    # path launches it: logged beside the tiers, not a row of its own)
-    packed_one_fwd, (packed_one_bwd, _) = check_window(
+    # the same batch as one window, the alternative the tiers replace:
+    # logged beside the tiers; the EP path at world size 1 launches it
+    # (phase 13 gives these records its launches)
+    packed_one_fwd, (packed_one_bwd, packed_one_red) = check_window(
         "packed one window", packed_args, mcfg, seed=24, fwd_timed=True,
         bwd_timed=True)
     # the one-window fixed-budget path's first batch, as the earlier
@@ -3141,6 +3579,13 @@ def main() -> int:
     log(f"[phase 12] took {time.perf_counter() - t12:.1f} s; done at "
         f"{time.perf_counter() - t_start:.1f} s")
 
+    # ---- 13. the parallel paths: DP, EP, DP x EP ----
+    log(f"[phase 13] starts at {time.perf_counter() - t_start:.1f} s")
+    parallel_rows = parallel_paths(
+        card, device, train_graphs, mcfg, tcfg, packed,
+        (packed_one_fwd, packed_one_bwd, packed_one_red))
+    log(f"[phase 13] done at {time.perf_counter() - t_start:.1f} s")
+
     fwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_fwd.cu"
     bwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_bwd.cu"
 
@@ -3200,7 +3645,7 @@ def main() -> int:
          "source": bwd_src, "replaces": f"{PALLAS}:271",
          "launches": packed_counts["reduce"],
          "window": f"partials of packed tier {win}", **red})
-    kernels += gap_rows + bf16_rows + data_rows
+    kernels += gap_rows + bf16_rows + data_rows + parallel_rows
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise AssertionError(f"rows not launched on their path: {idle}")

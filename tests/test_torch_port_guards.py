@@ -47,12 +47,79 @@ def test_port_imports_no_jax_nor_the_jax_package():
                    "data/integrals/basis.py", "data/integrals/md.py",
                    "data/integrals/engine.py", "models/x2gnn.py",
                    "nn/conv.py", "ops/attention.py", "ops/segment.py",
-                   "ops/basis.py", "data/batching.py"):
+                   "ops/basis.py", "data/batching.py", "parallel/mesh.py",
+                   "parallel/data_parallel.py", "parallel/ep_model.py",
+                   "parallel/hybrid.py", "parallel/edge_partition.py",
+                   "parallel/__init__.py", "__init__.py"):
         assert f"x2gnn_tpu_torch/{module}" in scanned, module
     bad = [(str(p.relative_to(REPO)), name) for p in files
            for name in _imports(p)
            if name.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+# the reference's top-level names (x2gnn_tpu/__init__.py:20-37): three at
+# import, three on first use
+EXPORTS = ("__version__", "ModelConfig", "TrainConfig")
+LAZY_EXPORTS = ("X2GNN", "Predictor", "Trainer")
+
+
+def _fresh_python(code):
+    """Run `code` in a new interpreter from the repository root; its
+    stdout's last line as JSON."""
+    import json
+    import subprocess
+    import sys
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_package_exports_the_reference_names():
+    """`import x2gnn_tpu_torch` gives every name `import x2gnn_tpu` gives:
+    __version__, ModelConfig and TrainConfig at import, X2GNN, Predictor
+    and Trainer on first use; the package's import loads no torch."""
+    code = """
+import json, sys
+import x2gnn_tpu, x2gnn_tpu_torch as p
+eager = {n: hasattr(p, n) for n in %r}
+torch_loaded = "torch" in sys.modules
+lazy = {n: getattr(p, n).__module__ for n in %r}
+ref = [n for n in %r + %r if hasattr(x2gnn_tpu, n)]
+print(json.dumps([eager, torch_loaded, lazy, ref, p.__version__,
+                  x2gnn_tpu.__version__]))
+""" % (EXPORTS, LAZY_EXPORTS, EXPORTS, LAZY_EXPORTS)
+    eager, torch_loaded, lazy, ref, version, ref_version = \
+        _fresh_python(code)
+    assert all(eager.values()) and not torch_loaded
+    assert lazy == {"X2GNN": "x2gnn_tpu_torch.models.x2gnn",
+                    "Predictor": "x2gnn_tpu_torch.infer",
+                    "Trainer": "x2gnn_tpu_torch.train.trainer"}
+    assert ref == list(EXPORTS + LAZY_EXPORTS) and version == ref_version
+    import x2gnn_tpu_torch
+    with pytest.raises(AttributeError):
+        x2gnn_tpu_torch.NoSuchName
+
+
+def test_importing_the_package_starts_no_process_group_or_process():
+    """Importing the package and every module of its parallel paths
+    initializes no torch.distributed process group and starts no child
+    process or thread."""
+    code = """
+import json, multiprocessing, threading
+before = threading.active_count()
+import x2gnn_tpu_torch
+import x2gnn_tpu_torch.parallel
+from x2gnn_tpu_torch import Trainer, X2GNN, Predictor
+import x2gnn_tpu_torch.train.__main__
+import torch.distributed as dist
+print(json.dumps([dist.is_initialized(),
+                  len(multiprocessing.active_children()),
+                  threading.active_count() - before]))
+"""
+    assert _fresh_python(code) == [False, 0, 0]
 
 
 def test_default_device_raises_without_a_card():
@@ -357,16 +424,6 @@ def test_featurizing_entry_points_are_honoured(tmp_path, capsys):
     np.testing.assert_array_equal(
         got, pred.predict_molecules(mols, backend="native"))
     assert got.shape == (8,) and np.isfinite(got).all()
-
-
-@pytest.mark.parametrize("argv,item", [
-    (["--data-parallel"], "A10"), (["--edge-partition", "ring"], "A10"),
-    (["--dp-groups", "2"], "A10")])
-def test_unported_cli_flags_stay_refused(argv, item, tmp_path):
-    from x2gnn_tpu_torch.train.__main__ import main
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        main(["--device", "cpu", "--synthetic", "4", "--workdir",
-              str(tmp_path), *argv])
 
 
 @pytest.mark.parametrize("layout", ["padded", "segment"])

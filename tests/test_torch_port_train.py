@@ -425,10 +425,23 @@ def test_cli_trains_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--data-parallel", "--edge-partition=ring",
                                   "--dp-groups=2"])
-def test_cli_refuses_unported_flags(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        cli_main(["--device", "cpu", "--synthetic", "4", flag,
-                  "--workdir", str(tmp_path)])
+def test_cli_refuses_unported_flags(flag, tmp_path, capsys):
+    """The flags ROADMAP A10 listed as unported run now: --data-parallel
+    and --edge-partition train an epoch at world size 1 on the CPU;
+    --dp-groups alone is still refused, with exit 2 (train.py:288-290)."""
+    import torch.distributed as dist
+    rc = cli_main(["--device", "cpu", "--synthetic", "12", "--epochs", "1",
+                   "--config", _small_config(tmp_path), flag,
+                   "--workdir", str(tmp_path / "run")])
+    assert not dist.is_initialized()
+    if flag.startswith("--dp-groups"):
+        assert rc == 2
+        assert "--dp-groups requires --edge-partition" in \
+            capsys.readouterr().err
+    else:
+        assert rc == 0
+        assert (tmp_path / "run" / "metrics.jsonl").read_text().count(
+            "\n") == 1
 
 
 def test_cli_trains_in_the_segment_layout(tmp_path):
@@ -470,18 +483,22 @@ def test_cli_resumes_from_a_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    dict(accum_steps=2, mesh=object()), dict(mesh=object()),
-    dict(edge_partition="ring"),
+    dict(accum_steps=2, edge_partition="ring"),
+    dict(edge_partition="allgather"),
+    dict(feat_dtype="int8", edge_partition="ring"),
     dict(feat_dtype="float16", edge_partition="ring")])
 def test_trainer_refuses_unported_options(change):
-    """The parallel paths (ROADMAP A10) stay refused, also beside the
-    options ported since (accum_steps, feat_dtype)."""
+    """The Trainer takes the parallel paths (ROADMAP A10) now; what it
+    refuses, also beside accum_steps and feat_dtype, is edge partitioning
+    without a mesh to split over, and int8 features on the EP layout
+    (trainer.py:132-136)."""
     graphs = _graphs(4, seed=24)
     targets = np.zeros(4, np.float32)
     train = {k: v for k, v in change.items() if k == "accum_steps"}
     other = {k: v for k, v in change.items() if k not in train}
     model = X2GNN(ModelConfig(**SMALL), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    match = "int8" if change.get("feat_dtype") == "int8" else "pass mesh="
+    with pytest.raises(ValueError, match=match):
         Trainer(model, ModelConfig(**SMALL), TrainConfig(**train), graphs,
                 targets, device="cpu", **other)
 

@@ -81,26 +81,25 @@ class ResidualLayer(nn.Module):
 
 class _FreqScaledLookup(torch.autograd.Function):
     """table[idx] whose backward divides each looked-up row's gradient by
-    the count of its index in the batch (torch's `scale_grad_by_freq`) and
-    gives row 0 none (torch's `padding_idx=0`), as the reference's
+    `counts[idx]`, the count of its index (torch's `scale_grad_by_freq`),
+    and gives row 0 none (torch's `padding_idx=0`), as the reference's
     `_freq_scaled_lookup` (x2gnn_tpu/nn/layers.py:77-104). The counts and
     the row sums are one-hot products, so the gradient is the same bit for
     bit on every run (no atomics)."""
 
     @staticmethod
-    def forward(ctx, table, idx):
-        ctx.save_for_backward(idx)
+    def forward(ctx, table, idx, counts):
+        ctx.save_for_backward(idx, counts)
         ctx.vocab = table.shape[0]
         return table[idx]
 
     @staticmethod
     def backward(ctx, g):
-        (idx,) = ctx.saved_tensors
+        idx, counts = ctx.saved_tensors
         onehot = F.one_hot(idx, ctx.vocab).to(g.dtype)       # (n, vocab)
-        counts = onehot.sum(0)
         scale = 1.0 / torch.clamp(counts[idx], min=1.0)
         scale = torch.where(idx == 0, 0.0, scale)
-        return onehot.t() @ (g * scale[:, None]), None
+        return onehot.t() @ (g * scale[:, None]), None, None
 
 
 class EmbeddingBlock(nn.Module):
@@ -122,11 +121,20 @@ class EmbeddingBlock(nn.Module):
         self.max_norm = max_norm
         self.lin = Dense(embedding_size, embedding_size, generator=generator)
 
-    def forward(self, numbers: torch.Tensor) -> torch.Tensor:
+    def forward(self, numbers: torch.Tensor,
+                counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`counts` (vocab,) float: each index's count that its rows'
+        gradients divide by; by default its count in `numbers` (the
+        edge-partitioned model passes the count over every rank's
+        atoms)."""
         table = self.embedding
         norms = torch.sqrt((table * table).sum(-1, keepdim=True) + 1e-24)
         table = table * torch.clamp(self.max_norm / norms, max=1.0)
-        return F.silu(self.lin(_FreqScaledLookup.apply(table, numbers)))
+        if counts is None:
+            counts = F.one_hot(numbers, table.shape[0]).sum(0).to(
+                table.dtype)
+        return F.silu(self.lin(_FreqScaledLookup.apply(table, numbers,
+                                                        counts)))
 
 
 class MLPHead(nn.Module):

@@ -59,14 +59,26 @@ class MolWiseReadout(nn.Module):
                 num_atoms: int, num_graphs: int,
                 edge_mask: Optional[torch.Tensor] = None,
                 node_mask: Optional[torch.Tensor] = None,
-                aggregate: Optional[Callable] = None) -> torch.Tensor:
+                aggregate: Optional[Callable] = None,
+                total: Optional[Callable] = None) -> torch.Tensor:
         """As AtomWiseReadout, then the atoms' rows pooled into their
         molecules (`atom_gid`, real atoms `node_mask`) before the MLP.
-        Returns (num_graphs, num_target)."""
+        `total` maps the per-molecule sums of these atoms to the
+        molecules' sums (the edge-partitioned model all-reduces them over
+        its ranks). Returns (num_graphs, num_target)."""
         out = self.lin_rbf(rbf) * x
         if aggregate is not None:
             out = aggregate(out)
         else:
             out = segment_sum(out, edge_src, num_atoms, mask=edge_mask)
-        pool = segment_mean if self.pool == "mean" else segment_sum
-        return self.mlp(pool(out, atom_gid, num_graphs, mask=node_mask))
+        if total is None:
+            pool = segment_mean if self.pool == "mean" else segment_sum
+            return self.mlp(pool(out, atom_gid, num_graphs, mask=node_mask))
+        pooled = total(segment_sum(out, atom_gid, num_graphs, mask=node_mask))
+        if self.pool == "mean":
+            ones = torch.ones(out.shape[0], dtype=out.dtype,
+                              device=out.device)
+            count = total(segment_sum(ones, atom_gid, num_graphs,
+                                      mask=node_mask))
+            pooled = pooled / torch.clamp(count, min=1.0)[:, None]
+        return self.mlp(pooled)

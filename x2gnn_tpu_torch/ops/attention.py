@@ -1,8 +1,8 @@
 """Line-graph attention primitives (x2gnn_tpu/ops/attention.py): the
 blocked layout's injective gathers (:29-62), the segment and padded
 layouts' attention (:90-101, :171-198), the attention-dropout keep mask in
-the canonical pair space and its per-triplet positions (:201-226), and the
-beta-gated skip (:229-237).
+the canonical pair space, the generator it is drawn from, and its
+per-triplet positions (:201-226), and the beta-gated skip (:229-237).
 
 The flat layouts read each edge's rows once per triplet: q at the
 triplet's destination edge, k and v at its source edge. Autograd would
@@ -84,6 +84,23 @@ def pair_dropout_mask(generator: Optional[torch.Generator], rate: float,
     keep = 1.0 - rate
     mask = torch.empty((N, D, D, H), dtype=torch.float32, device=device)
     return mask.bernoulli_(keep, generator=generator).div_(keep)
+
+
+# the odd 64-bit constant that folds a rank into a dropout seed: rank 0
+# keeps the seed, each other rank gets another
+_RANK_FOLD = 0x9E3779B97F4A7C15
+
+
+def dropout_generator(random_seed: int, step: int, device,
+                      rank: int = 0) -> torch.Generator:
+    """The generator of the dropout masks of optimizer step `step` on
+    `device`: seeded by (random_seed, step), as the reference folds the
+    step into its dropout key (x2gnn_tpu/train/trainer.py:244-254), so a
+    step draws the same masks in every run; a parallel run folds in the
+    rank (x2gnn_tpu/parallel/data_parallel.py:94-97), rank 0 drawing what
+    one device draws."""
+    seed = ((random_seed << 32) + int(step)) ^ (rank * _RANK_FOLD)
+    return torch.Generator(device=device).manual_seed(seed % (1 << 64))
 
 
 class TripletTables(NamedTuple):

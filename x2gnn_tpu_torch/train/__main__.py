@@ -20,6 +20,10 @@ train.py (:168-358):
     python -m x2gnn_tpu_torch.train --device cpu --synthetic 24 \\
         --epochs 2 --batch-size 8 --workdir /tmp/run   # on the CPU
     python -m x2gnn_tpu_torch.train --layout segment ...  # another layout
+    python -m torch.distributed.run --nproc-per-node 8 -m \
+        x2gnn_tpu_torch.train --data-parallel ...   # 8 cards, one run
+    python -m torch.distributed.run --nproc-per-node 4 -m \
+        x2gnn_tpu_torch.train --edge-partition ring --device cpu ...
 
 Data: --synthetic N molecules, made with the model's edge feature width
 and cutoff; --data, a concatenated xyz file featurized by `load_dataset`
@@ -54,9 +58,19 @@ and exits 3 if the two differ in any bit.
 Other flags: --dropout, --target, --epochs, --batch-size, --max-lr,
 --scheduler, --warmup-steps, --ema-decay, --patience, --fused-update,
 --atomref-fit, --standardize, --ckpt-every, --ckpt-after-epoch,
---bucket-shapes, --pack-budget, --pack-mixed, --device. --data-parallel,
---edge-partition and --dp-groups (ROADMAP A10) raise
-NotImplementedError.
+--bucket-shapes, --pack-budget, --pack-mixed, --device.
+
+Parallel runs (train.py:288-321), one process per rank as
+torch.distributed.run starts them (a run without it is one rank): each
+rank trains on the card of its LOCAL_RANK over NCCL, or with --device
+cpu over gloo. --data-parallel splits each group of batches over the
+ranks; --edge-partition allgather|ring splits every batch's atoms over
+them (and implies the blocked layout); --dp-groups N with it makes N rows
+of ranks that split the groups, each row splitting its batch's atoms.
+--dp-groups without --edge-partition, or one that does not divide the
+ranks, exits 2. Rank 0 featurizes --data first, the others then read
+its cache; every rank restores a --resume; rank 0 alone writes the run
+directory and prints.
 
 Writes provenance.json (the data's basis tag), atomref.json
 (--atomref-fit), standardization.json (--standardize), and through
@@ -71,16 +85,6 @@ import dataclasses
 import json
 import os
 import sys
-
-# flags of the reference CLI whose paths the port does not run yet; the
-# values that leave them off
-_UNPORTED = {
-    "data_parallel": ("--data-parallel", "A10"),
-    "edge_partition": ("--edge-partition", "A10"),
-    "dp_groups": ("--dp-groups", "A10"),
-}
-_OFF = (None, False, 0)
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -168,9 +172,15 @@ def parse_args(argv=None):
                    help="before training, run the first training step "
                         "twice and compare the states bitwise; exit 3 if "
                         "they differ")
-    p.add_argument("--data-parallel", action="store_true")
-    p.add_argument("--edge-partition", default=None)
-    p.add_argument("--dp-groups", type=int, default=0)
+    p.add_argument("--data-parallel", action="store_true",
+                   help="molecule-level data parallelism over the ranks")
+    p.add_argument("--edge-partition", choices=["allgather", "ring"],
+                   default=None,
+                   help="split each batch's atoms over the ranks; the K/V "
+                        "exchange by all-gather or a send/recv ring")
+    p.add_argument("--dp-groups", type=int, default=0,
+                   help="with --edge-partition: N rows of ranks, each "
+                        "splitting its own batches' atoms (DP x EP)")
     p.add_argument("--layout", choices=["segment", "padded", "blocked"],
                    default="blocked",
                    help="attention layout: blocked (the fused kernels), "
@@ -181,17 +191,49 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    for field, (flag, item) in _UNPORTED.items():
-        if getattr(args, field) not in _OFF:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP {item})")
     if not (args.synthetic or args.data_npz or args.data):
         print("need --synthetic N, --data XYZ or --data-npz CACHE",
               file=sys.stderr)
         return 2
+    if args.dp_groups and not args.edge_partition:
+        print("--dp-groups requires --edge-partition", file=sys.stderr)
+        return 2
+    if not (args.data_parallel or args.edge_partition):
+        return _train(args, None)
 
+    import torch.distributed as dist
+
+    from x2gnn_tpu_torch.parallel import (
+        initialize_distributed, make_hybrid_mesh, make_mesh)
+    device = initialize_distributed(device=args.device)
+    try:
+        world = dist.get_world_size()
+        if args.dp_groups:
+            if world % args.dp_groups:
+                print(f"--dp-groups {args.dp_groups} does not divide "
+                      f"{world} ranks", file=sys.stderr)
+                return 2
+            mesh = make_hybrid_mesh(args.dp_groups, world // args.dp_groups)
+            mode = (f"hybrid DP x EP ({args.dp_groups} groups x "
+                    f"{world // args.dp_groups}-way {args.edge_partition})")
+        else:
+            mesh = make_mesh()
+            mode = (f"edge partitioning ({args.edge_partition})"
+                    if args.edge_partition else "data parallel")
+        if mesh.rank == 0:
+            print(f"{mode} over {world} ranks ({dist.get_backend()})",
+                  file=sys.stderr)
+        return _train(args, mesh, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, mesh, device=None) -> int:
+    """The run: on one device (`mesh` None), or as this rank of `mesh` on
+    `device`."""
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from x2gnn_tpu_torch.config import ModelConfig, TrainConfig, load_configs
     from x2gnn_tpu_torch.data.molecule import (
@@ -224,8 +266,15 @@ def main(argv=None) -> int:
     # model dispatch by target family (train_ema.py:41-44)
     readout = ("atomwise" if tcfg.target in EXTENSIVE_TARGETS
                else "molwise_mean")
+    writes = mesh is None or mesh.rank == 0
+    layout = args.layout
+    if args.edge_partition and layout != "blocked":
+        if writes:
+            print("edge partitioning implies the blocked layout",
+                  file=sys.stderr)
+        layout = "blocked"
     mcfg = dataclasses.replace(mcfg, readout=readout,
-                               attention_layout=args.layout)
+                               attention_layout=layout)
     if args.compute_dtype is not None:
         mcfg = dataclasses.replace(mcfg, compute_dtype=args.compute_dtype)
     if args.remat:
@@ -234,7 +283,10 @@ def main(argv=None) -> int:
         mcfg = dataclasses.replace(mcfg, dropout=args.dropout)
 
     # the data first: featurizing runs a process pool of its own before
-    # this process touches the card
+    # this process touches the card; in a parallel run rank 0 featurizes
+    # and the other ranks wait, then read its cache
+    if not writes:
+        dist.barrier()
     if args.synthetic:
         graphs = synthetic_dataset(args.synthetic, cutoff=mcfg.cutoff,
                                    edge_feat_dim=mcfg.edge_feat_dim)
@@ -260,12 +312,15 @@ def main(argv=None) -> int:
         # the eV -> kcal/mol calibration applies to 12-property QM9 labels
         multi = graphs[0].y.shape[0] == 12
         std = report_calibration(tcfg.target) if multi else 1.0
-    device = resolve_device(args.device)
-    # the data's featurization basis beside the checkpoints: evaluation
-    # refuses data of another basis
-    os.makedirs(args.workdir, exist_ok=True)
-    with open(os.path.join(args.workdir, "provenance.json"), "w") as f:
-        json.dump({"basis": data_basis}, f)
+    if mesh is not None and writes:
+        dist.barrier()
+    device = device or resolve_device(args.device)
+    if writes:
+        # the data's featurization basis beside the checkpoints:
+        # evaluation refuses data of another basis
+        os.makedirs(args.workdir, exist_ok=True)
+        with open(os.path.join(args.workdir, "provenance.json"), "w") as f:
+            json.dump({"basis": data_basis}, f)
 
     if args.atomref_fit:
         # the split the Trainer will build: the fit sees train molecules
@@ -275,19 +330,21 @@ def main(argv=None) -> int:
         atomref_pred, table = fit_linear_atomref(
             [g.numbers for g in graphs], targets, fit_idx)
         targets = np.asarray(targets, np.float64) - atomref_pred
-        print(f"atomref-fit: residual std {targets[fit_idx].std():.4f}",
-              file=sys.stderr)
-        with open(os.path.join(args.workdir, "atomref.json"), "w") as f:
-            json.dump(table, f, indent=1)
+        if writes:
+            print(f"atomref-fit: residual std "
+                  f"{targets[fit_idx].std():.4f}", file=sys.stderr)
+            with open(os.path.join(args.workdir, "atomref.json"), "w") as f:
+                json.dump(table, f, indent=1)
     if args.standardize:
         mu, sigma = float(np.mean(targets)), float(np.std(targets) + 1e-12)
         targets = ((targets - mu) / sigma).astype(np.float32)
         std *= sigma
-        print(f"standardized targets: mu={mu:.4f} sigma={sigma:.4f}",
-              file=sys.stderr)
-        with open(os.path.join(args.workdir, "standardization.json"),
-                  "w") as f:
-            json.dump({"mu": mu, "sigma": sigma}, f)
+        if writes:
+            print(f"standardized targets: mu={mu:.4f} sigma={sigma:.4f}",
+                  file=sys.stderr)
+            with open(os.path.join(args.workdir, "standardization.json"),
+                      "w") as f:
+                json.dump({"mu": mu, "sigma": sigma}, f)
 
     model = X2GNN(mcfg, torch.Generator().manual_seed(0), device=device)
     cache_batches = {"auto": None, "on": True, "off": False,
@@ -295,7 +352,8 @@ def main(argv=None) -> int:
     trainer = Trainer(model, mcfg, tcfg, graphs, targets,
                       workdir=args.workdir, std=std,
                       feat_dtype=args.feat_dtype, device=device,
-                      cache_batches=cache_batches)
+                      cache_batches=cache_batches, mesh=mesh,
+                      edge_partition=args.edge_partition)
     state = None
     resume_from = args.resume
     if resume_from is None and args.auto_resume:
@@ -306,9 +364,10 @@ def main(argv=None) -> int:
         state = trainer.restore(resume_from)
         done = int(state.step) // trainer.steps_per_epoch()
         epochs = max(tcfg.max_epoch - done, 0)
-        print(f"resumed from {resume_from} at step {int(state.step)} "
-              f"(~epoch {done}); {epochs} epochs remaining",
-              file=sys.stderr)
+        if writes:
+            print(f"resumed from {resume_from} at step {int(state.step)} "
+                  f"(~epoch {done}); {epochs} epochs remaining",
+                  file=sys.stderr)
     if args.check_determinism:
         from x2gnn_tpu_torch.utils.determinism import (
             check_train_step_determinism)
@@ -322,7 +381,8 @@ def main(argv=None) -> int:
 
     _, summary = trainer.fit(epochs=epochs, state=state,
                              profile_dir=args.profile_dir)
-    print(json.dumps(summary))
+    if writes:
+        print(json.dumps(summary))
     return 0
 
 

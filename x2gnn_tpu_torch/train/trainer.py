@@ -1,6 +1,7 @@
-"""Training loop (x2gnn_tpu/train/trainer.py, single-device path): EMA
-training with a per-step schedule, masked losses, best-val checkpoints,
-`metrics.jsonl` and the reference-style `train.log`.
+"""Training loop (x2gnn_tpu/train/trainer.py): EMA training with a
+per-step schedule, masked losses, best-val checkpoints, `metrics.jsonl`
+and the reference-style `train.log`, on one device or, with a `mesh`
+(`parallel/`), over the ranks of a torch.distributed run.
 
 Batches are fixed-budget (`pad_budget_for` over the whole dataset, or the
 caller's `budgets`) and taken in split order every epoch, as the
@@ -41,6 +42,19 @@ state handed in from outside (`restore`, `fit(state=)`) is first copied
 into those live tensors (`use_state`). A resumed run counts epochs
 globally from its restored step (trainer.py:571-609). `fit(profile_dir=)`
 traces the second epoch with torch.profiler (trainer.py:612-617).
+
+With a `mesh` (trainer.py:180-231) every rank runs this Trainer on its
+own process and keeps only its own batches (the reference's sharded
+batch cache, :174-178, :482-520): data parallelism gives each rank its
+member of each group of `world` consecutive plan batches
+(`parallel.data_parallel.dp_batch_iterator`, the last group filled with
+all-masked batches); `edge_partition` ("allgather" or "ring") gives
+every rank its piece of the atoms of every batch (`parallel.ep_model`),
+and a mesh with a 'dp' axis (`parallel.hybrid.make_hybrid_mesh`) does
+both, a group per row (:411-459). Planned batches are shuffled in whole
+groups, the same permutation on every rank. The ranks start from rank
+0's parameters, apply the same all-reduced update every step, and rank 0
+alone writes the run directory.
 """
 
 from __future__ import annotations
@@ -53,6 +67,7 @@ from typing import Iterator, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from x2gnn_tpu_torch.config import ModelConfig, TrainConfig, dump_configs
 from x2gnn_tpu_torch.data.batching import (
@@ -61,6 +76,12 @@ from x2gnn_tpu_torch.data.batching import (
 from x2gnn_tpu_torch.data.prefetch import prefetch
 from x2gnn_tpu_torch.device import resolve_device
 from x2gnn_tpu_torch.models.x2gnn import needs_triplets
+from x2gnn_tpu_torch.ops.attention import dropout_generator
+from x2gnn_tpu_torch.parallel.data_parallel import (
+    dp_batch_iterator, empty_like_batch, make_dp_eval_step,
+    make_dp_train_step)
+from x2gnn_tpu_torch.parallel.ep_model import (
+    make_ep_batch, make_ep_eval_step, make_ep_train_step)
 from x2gnn_tpu_torch.train.checkpoint import (
     restore_checkpoint, save_checkpoint)
 from x2gnn_tpu_torch.train.ema import EmaState, ema_init, unflatten
@@ -135,6 +156,12 @@ def _flatten_parameters(params: Sequence[torch.nn.Parameter]) -> torch.Tensor:
     return flat
 
 
+class _Filler(NamedTuple):
+    """A step entry past the last real batch of a group: an all-masked
+    batch of `entry`'s shape (parallel.data_parallel.empty_like_batch)."""
+    entry: tuple
+
+
 class Trainer:
     def __init__(
         self,
@@ -158,7 +185,11 @@ class Trainer:
         `feat_dtype`: the edge features' dtype in the batches, one of
         FEAT_DTYPES (`cast_feat`). `cache_batches`: one of CACHE_MODES
         (see the module's docstring); None is True for up to
-        DEVICE_CACHE_MAX_MOLECULES molecules, else False."""
+        DEVICE_CACHE_MAX_MOLECULES molecules, else False. `mesh`: a
+        `parallel.mesh.Mesh` of an initialized process group, this
+        rank's `device` on it; `edge_partition`: None (data parallelism
+        over the mesh), "allgather" or "ring" (see the module's
+        docstring)."""
         if feat_dtype not in FEAT_DTYPES:
             raise ValueError(f"feat_dtype must be one of {FEAT_DTYPES}, "
                              f"got {feat_dtype!r}")
@@ -166,14 +197,15 @@ class Trainer:
                 or cache_batches == "host"):
             raise ValueError(f"cache_batches must be one of {CACHE_MODES}, "
                              f"got {cache_batches!r}")
-        unported = [
-            (mesh is not None, "a device mesh (data parallelism)", "A10"),
-            (edge_partition is not None, "edge_partition", "A10"),
-        ]
-        for bad, what, item in unported:
-            if bad:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP {item})")
+        if feat_dtype == "int8" and edge_partition:
+            # trainer.py:132-136
+            raise ValueError(
+                "feat_dtype='int8' is a blocked/DP wire format; the EP "
+                "batch layout pre-gathers features (make_ep_batch) - use "
+                "float16 there")
+        if edge_partition is not None and mesh is None:
+            raise ValueError("edge_partition splits a batch over the ranks "
+                             "of a mesh: pass mesh=")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.mcfg = model_cfg
@@ -183,7 +215,11 @@ class Trainer:
         self.workdir = workdir
         self.std = std
         self.feat_dtype = feat_dtype
-        self._with_triplets = needs_triplets(model_cfg)
+        self.mesh = mesh
+        self.edge_partition = edge_partition
+        # the EP layout never reads the triplet arrays (trainer.py:122-129)
+        self._with_triplets = (needs_triplets(model_cfg)
+                               and edge_partition is None)
         self.optimizer = Optimizer(train_cfg)
 
         n = len(self.graphs)
@@ -201,6 +237,16 @@ class Trainer:
         if self.pack_budget and not self.bucket_shapes:
             raise ValueError("pack_budget requires bucket_shapes >= 1 "
                              "(packing fills the per-class budgets)")
+        if self.bucket_shapes and mesh is not None:
+            # trainer.py:151-168: a rank's fillers and its EP pieces take
+            # the shapes of one plan
+            import warnings
+            warnings.warn(
+                "bucket_shapes emits multiple compiled shapes, which "
+                "cannot be stacked across mesh devices; upgrading this "
+                "run to --pack-mixed (one shape, mixed-FFD bins)")
+            self.pack_mixed, self.bucket_shapes = True, 0
+            self.pack_budget = False
         if cache_batches is None:
             cache_batches = n <= DEVICE_CACHE_MAX_MOLECULES
         self.cache_batches = cache_batches
@@ -212,21 +258,62 @@ class Trainer:
         self._leaves = list(model.parameters())
         self._flat = (_flatten_parameters(self._leaves)
                       if train_cfg.fused_update else None)
+        self._writes = mesh is None or mesh.rank == 0
+        self._parallel_step = self._parallel_eval = None
+        self._group = self._ep = None   # (group size, member); EP size
+        if mesh is not None:
+            self._init_parallel()
+
+    def _init_parallel(self) -> None:
+        """The mesh's steps (trainer.py:180-231) and its rank-local batch
+        grouping; the parameters from rank 0."""
+        mesh, tcfg = self.mesh, self.tcfg
+        with torch.no_grad():
+            flat = torch.cat([p.reshape(-1) for p in self._leaves])
+            dist.broadcast(flat, src=0)
+            for p, v in zip(self._leaves, unflatten(flat, self._leaves)):
+                p.copy_(v)
+        if self.edge_partition is None:
+            # data parallelism: a group of n_dev batches per step
+            self._group = (mesh.size, mesh.rank)
+            self._parallel_step = make_dp_train_step(
+                self.model, self.optimizer, tcfg.ema_decay, mesh,
+                dropout=self.mcfg.dropout, rng_seed=tcfg.random_seed)
+            self._parallel_eval = make_dp_eval_step(self.model, mesh)
+            return
+        # one batch per step (per row with a 'dp' axis), its atoms split
+        # over the 'data' axis, padded to a multiple of its size
+        self._ep = mesh.axis_size("data")
+        self._ep_index = mesh.axis_index("data")
+        if "dp" in mesh.axis_names:
+            self._group = (mesh.axis_size("dp"), mesh.axis_index("dp"))
+        self._parallel_step = make_ep_train_step(
+            self.model, self.optimizer, tcfg.ema_decay, mesh,
+            self.edge_partition, tcfg.random_seed)
+        self._parallel_eval = make_ep_eval_step(
+            self.model, mesh, kv_exchange=self.edge_partition)
 
     # ---- steps -----------------------------------------------------------
     def dropout_generator(self, step: int) -> torch.Generator:
         """The generator of the dropout masks of optimizer step `step`, on
         the trainer's device: seeded by (random_seed, step), so the same
         step draws the same masks in every run."""
-        g = torch.Generator(device=self.device)
-        return g.manual_seed((self.tcfg.random_seed << 32) + int(step))
+        return dropout_generator(self.tcfg.random_seed, step, self.device)
 
-    def train_step(self, state: TrainState, batch: GraphBatch,
+    def train_step(self, state: TrainState, batch,
                    step: Optional[int] = None):
         """One optimization step (trainer.py:239-264); returns (state,
         loss) with the loss still on the device. With attention dropout,
         the masks come from `dropout_generator` of `step`, state.step's
-        value (read from the device when not given)."""
+        value (read from the device when not given). With a mesh,
+        `batch` is this rank's (a GraphBatch, or an EPBatch piece) and
+        the loss the step's over every rank."""
+        return self._step(state, batch, step)[:2]
+
+    def _step(self, state: TrainState, batch, step: Optional[int]):
+        """(state, loss, real graphs of the step over every rank)."""
+        if self._parallel_step is not None:
+            return self._parallel_step(state, batch, step)
         if self.mcfg.dropout > 0:
             if step is None:
                 step = int(state.step)
@@ -240,9 +327,9 @@ class Trainer:
                                     materialize_grads=True)
         if self._flat is not None:
             grads = [torch.cat([g.reshape(-1) for g in grads])]
-        return apply_update_skip_nonfinite(state, loss.detach(), grads,
-                                           self.optimizer,
-                                           self.tcfg.ema_decay)
+        return apply_update_skip_nonfinite(
+            state, loss.detach(), grads, self.optimizer,
+            self.tcfg.ema_decay) + (batch.graph_mask.sum(),)
 
     def ema_parameters(self, state: TrainState) -> dict:
         """{parameter name: EMA tensor} (views of the flat EMA if fused)."""
@@ -251,10 +338,12 @@ class Trainer:
             ema = unflatten(ema[0], self._leaves)
         return dict(zip(self._names, ema))
 
-    def eval_step(self, ema_params: dict, batch: GraphBatch):
+    def eval_step(self, ema_params: dict, batch):
         """(sum of |err| over the batch's real graphs, their count), both on
-        the device; the calibration is applied by `evaluate`
-        (trainer.py:266-274)."""
+        the device, over every rank with a mesh; the calibration is
+        applied by `evaluate` (trainer.py:266-274)."""
+        if self._parallel_eval is not None:
+            return self._parallel_eval(ema_params, batch)
         with torch.no_grad():
             pred = torch.func.functional_call(self.model, ema_params,
                                               (batch,))
@@ -367,9 +456,30 @@ class Trainer:
             self._plans[key] = plan
         return self._plans[key]
 
-    def _assemble(self, entry) -> GraphBatch:
-        """The host batch of one plan entry, its features cast to
-        `feat_dtype` (trainer.py:372-381)."""
+    def _steps_of(self, idx) -> list:
+        """This rank's plan entries of the molecules `idx`, one per step:
+        the plan; with a group per step (data parallelism, or the rows of
+        DP x EP) this rank's member of each group, a `_Filler` past the
+        last real batch of the last group (trainer.py:411-459)."""
+        plan = self._plan_of(idx)
+        if self._group is None:
+            return plan
+        return list(dp_batch_iterator(plan, *self._group, filler=_Filler))
+
+    def _assemble(self, entry):
+        """The host batch of one step entry, its features cast to
+        `feat_dtype` (trainer.py:372-381); all-masked for a `_Filler`;
+        with edge partitioning this rank's piece of its EP layout."""
+        if isinstance(entry, _Filler):
+            batch = empty_like_batch(self._assemble_plan(entry.entry))
+        else:
+            batch = self._assemble_plan(entry)
+        if self._ep is None:
+            return batch
+        return make_ep_batch(batch, self._ep).shard(self._ep_index,
+                                                    self._ep)
+
+    def _assemble_plan(self, entry) -> GraphBatch:
         chunk, budgets, n_graph = entry
         return cast_feat(pad_graphs(
             [self.graphs[i] for i in chunk], budgets, n_graph=n_graph,
@@ -387,7 +497,7 @@ class Trainer:
         key = self._cache_key(idx)
         if key not in self._batch_cache:
             self._batch_cache[key] = [self._assemble(e).to(self.device)
-                                      for e in self._plan_of(idx)]
+                                      for e in self._steps_of(idx)]
         return self._batch_cache[key]
 
     def _host_batches(self, idx) -> List[GraphBatch]:
@@ -395,7 +505,7 @@ class Trainer:
         (pinned for the card)."""
         key = self._cache_key(idx)
         if key not in self._batch_cache:
-            host = [self._assemble(e) for e in self._plan_of(idx)]
+            host = [self._assemble(e) for e in self._steps_of(idx)]
             if self.device.type == "cuda":
                 host = [b.pin_memory() for b in host]
             self._batch_cache[key] = host
@@ -443,7 +553,7 @@ class Trainer:
         elif self.cache_batches == "host":
             items = self._host_batches(idx)
         else:
-            items = self._plan_of(idx)
+            items = self._steps_of(idx)
         if epoch is not None and self.packed:
             items = [items[j] for j in self._shuffle(len(items), epoch)]
         if self.cache_batches is True:
@@ -464,9 +574,9 @@ class Trainer:
                 close()
 
     def steps_per_epoch(self) -> int:
-        """Optimizer steps per epoch: the plan's batch count when packed
-        (trainer.py:461-486)."""
-        return max(len(self._plan_of(self.train_idx)), 1)
+        """Optimizer steps per epoch: the plan's batch count when packed,
+        per group of batches with a group per step (trainer.py:461-486)."""
+        return max(len(self._steps_of(self.train_idx)), 1)
 
     def _shuffle(self, n: int, epoch: int) -> np.ndarray:
         """The permutation of `n` planned batches that epoch `epoch`
@@ -495,11 +605,11 @@ class Trainer:
         # the steps' numbers for their dropout masks, read once per epoch
         step = int(state.step) if self.mcfg.dropout > 0 else None
         for batch in self.train_batches(epoch):
-            state, loss = self.train_step(state, batch, step)
+            state, loss, count = self._step(state, batch, step)
             if step is not None:
                 step += 1
             losses.append(loss)
-            counts.append(batch.graph_mask.sum())
+            counts.append(count)
         losses = torch.stack(losses).cpu().numpy().astype(np.float64)
         counts = torch.stack(counts).cpu().numpy()
         return state, float((losses * counts).sum() / max(counts.sum(), 1))
@@ -528,12 +638,15 @@ class Trainer:
         reference) and the best-val gate at the restored weights' val MAE
         or the smaller recorded ckpt_best_val.json. `profile_dir`: trace
         the second epoch (the first builds the batches and the kernels)
-        into that directory (`utils/profiling.py::trace`). Returns (state,
-        {"best_val_mae", "test_mae"})."""
+        into that directory (`utils/profiling.py::trace`). With a mesh
+        every rank trains and evaluates, and rank 0 alone writes the
+        files and the trace. Returns (state, {"best_val_mae",
+        "test_mae"})."""
         epochs = self.tcfg.max_epoch if epochs is None else epochs
-        os.makedirs(self.workdir, exist_ok=True)
-        dump_configs(self.mcfg, self.tcfg,
-                     os.path.join(self.workdir, "args.json"))
+        if self._writes:
+            os.makedirs(self.workdir, exist_ok=True)
+            dump_configs(self.mcfg, self.tcfg,
+                         os.path.join(self.workdir, "args.json"))
         log_path = os.path.join(self.workdir, "train.log")
         jsonl_path = os.path.join(self.workdir, "metrics.jsonl")
         best_meta = os.path.join(self.workdir, "ckpt_best_val.json")
@@ -563,7 +676,7 @@ class Trainer:
                 pass   # absent or torn file: the evaluation stands
         for epoch in range(epochs):
             t0 = time.time()
-            if profile_dir is not None and epoch == 1:
+            if profile_dir is not None and epoch == 1 and self._writes:
                 from x2gnn_tpu_torch.utils.profiling import trace
                 with trace(profile_dir, self.device):
                     state, loss = self.run_epoch(state, epoch0 + epoch)
@@ -580,13 +693,15 @@ class Trainer:
                 best_val = val_err
                 if epoch0 + epoch >= self.tcfg.ckpt_after_epoch:
                     test_err = self.evaluate(state, self.test_idx)
-                    save_checkpoint(
-                        os.path.join(self.workdir, "ckpt_best.pt"), state)
-                    tmp = best_meta + ".tmp"
-                    with open(tmp, "w") as f:
-                        json.dump({"best_val_mae": float(best_val)}, f)
-                    os.replace(tmp, best_meta)
-            if (self.tcfg.ckpt_every
+                    if self._writes:
+                        save_checkpoint(
+                            os.path.join(self.workdir, "ckpt_best.pt"),
+                            state)
+                        tmp = best_meta + ".tmp"
+                        with open(tmp, "w") as f:
+                            json.dump({"best_val_mae": float(best_val)}, f)
+                        os.replace(tmp, best_meta)
+            if (self.tcfg.ckpt_every and self._writes
                     and (epoch + 1) % self.tcfg.ckpt_every == 0):
                 save_checkpoint(os.path.join(self.workdir, "ckpt_last.pt"),
                                 state)
@@ -624,6 +739,8 @@ class Trainer:
                     record["occupancy_pairs"] = real_p / max(cap_p, 1)
             if plateau_logged is not None:
                 record["lr_scale"] = plateau_logged
+            if not self._writes:
+                continue
             with open(jsonl_path, "a") as f:
                 f.write(json.dumps(record) + "\n")
             with open(log_path, "a") as f:
