@@ -180,6 +180,22 @@ Phases, each of which raises on failure (exit code != 0):
      CLI with --data-parallel and --edge-partition ring under
      `python -m torch.distributed.run --nproc-per-node 1`; (e) ms per
      packed step of the plain, DP and EP trainers in turns.
+ 14. per-layer dumps (utils/parity.py) of the flagship with phase 4's
+     weights on the first serving batch (N=1024, D=24, one window) and the
+     first packed training batch (N=744, D=32, 8 tiers): every entry of the
+     card dump (hand kernels) within 1e-6 + 1e-4 x its max|x| of the CPU
+     dump (plain versions), the same keys on both sides, a rerun of the card
+     dump bitwise, and the bf16 model's output within 1e-2 and its other
+     entries within 2e-2 x their max|x|; the 5 worst entries and the
+     dump's bytes printed;
+ 15. A12's cut: the first 1,024 molecules of the A12 set built by the
+     port's builder (`make_synthetic --n 1024 --basis 6311 --gap-label`),
+     checked against tests/torch_port_curve_jax.json's checksums, its
+     atomref fit and standardization against the fixture's, the flagship
+     recipe trained 10 epochs from the fixture's initial weights
+     (Trainer.fit(state=init_state())), each epoch's val_mae and loss held
+     to the fixture's JAX curve (`curve_gate`), occupancy_pairs bitwise;
+     the kernels checked and timed on every tier of its first batch.
 Each row of the kernels line takes its launches from a path that launches
 its shape, with the counts zeroed just before that path.
 The line before the last is a JSON object {"kernels": [...]}; the last
@@ -3302,6 +3318,475 @@ def parallel_paths(card, device, train_graphs, mcfg, tcfg, packed,
          "window": f"partials of the {note}", **ep_red}]
 
 
+# ---- phase 14: per-layer dumps, card against CPU ----
+
+# each entry of a card dump against the CPU dump of the same weights and
+# batch: within 1e-4 of the entry's largest magnitude plus 1e-6, the
+# predictions' card-against-CPU gate (MODEL_RTOL) applied to every layer.
+# The bf16 model's output within 1e-2 of its largest magnitude (the
+# predictions' bf16 gate, BF16_PRED_TOL) and every other entry within 2e-2
+# (BF16_GRAD_TOL): one bf16 ulp is up to 2^-7 = 7.8e-3 of an entry's
+# largest magnitude, q, k, v and e can each land one ulp apart on the two
+# sides, and the deeper layers carry the earlier ones' flips (the first
+# card run measured conv_3's output at 1.116e-2 of its max|x| on the
+# serving batch, its prediction within 1e-2)
+PARITY_SCALE, PARITY_ATOL = 1e-4, 1e-6
+
+
+# a dump's entries of the model's output (X2GNN.forward's return value)
+OUTPUT_KEYS = ("__call__", "__output__")
+
+
+def report_dumps(tag, got, ref, scale, output_scale=None):
+    """Card dump `got` against CPU dump `ref`: every entry within
+    PARITY_ATOL + scale * its max|ref| (the model's output within
+    output_scale when given), the same keys on both sides. Logs the key
+    sets' sizes, the 5 worst entries relative to their largest magnitude
+    and the dump's bytes."""
+    atol = PARITY_ATOL
+    import numpy as np
+    from x2gnn_tpu_torch.utils.parity import compare_dumps
+
+    cmp = compare_dumps(got, ref, rtol=0.0, atol=atol, max_scale=scale)
+    if output_scale is not None:
+        out = compare_dumps({k: got[k] for k in OUTPUT_KEYS},
+                            {k: ref[k] for k in OUTPUT_KEYS}, rtol=0.0,
+                            atol=atol, max_scale=output_scale)
+        worst = max(err / max(float(np.abs(ref[k]).max()), 1e-30)
+                    for k, err, _ in out.entries)
+        log(f"[parity {tag}] the output within {worst:.3e} of its max|cpu| "
+            f"(gate {atol} + {output_scale} x max|cpu|)")
+        if not out.ok:
+            raise AssertionError(f"parity {tag}: the output is over its "
+                                 f"gate: {out.entries}")
+    worst = sorted(((k, err / max(float(np.abs(ref[k]).max()), 1e-30), err)
+                    for k, err, _ in cmp.entries), key=lambda t: -t[1])
+    log(f"[parity {tag}] {len(got)} card keys, {len(ref)} CPU keys, "
+        f"{len(cmp.entries)} compared; card dump "
+        f"{sum(v.nbytes for v in got.values())} bytes; "
+        "worst entries (err / max|cpu|, max_abs_err): " + ", ".join(
+            f"{k} {r:.3e} ({e:.3e})" for k, r, e in worst[:5])
+        + f"; gate {atol} + {scale} x max|cpu|")
+    if cmp.only_a or cmp.only_b:
+        raise AssertionError(f"parity {tag}: keys on one side only: "
+                             f"{cmp.only_a} / {cmp.only_b}")
+    if not cmp.ok:
+        raise AssertionError(f"parity {tag}: entries over the gate: "
+                             f"{cmp.failed()[:10]}")
+
+
+def dump_on_card(model, batch, tag, mcfg):
+    """One card dump with the counts zeroed just before and read just
+    after: conv_layers forward launches per attention window, no backward.
+    Returns (dump, counts per shape)."""
+    import torch
+    from x2gnn_tpu_torch.ops.blocked_attn import reset_launch_counts
+    from x2gnn_tpu_torch.utils.parity import dump_activations
+
+    reset_launch_counts()
+    dump = dump_activations(model, batch)
+    torch.cuda.synchronize()
+    counts, shapes = launch_counts(), launch_shapes()
+    expect = {"fwd": mcfg.conv_layers * len(windows_of(batch)), "bwd": 0,
+              "reduce": 0}
+    log(f"[parity {tag}] card dump: launches {counts} (expected {expect})")
+    if counts != expect:
+        raise AssertionError(f"parity {tag}: launches {counts}, expected "
+                             f"{expect}")
+    return dump, shapes
+
+
+def parity_dumps(cfg, device, qm9, packed):
+    """Phase 14: per-layer dumps of the flagship (weights from
+    torch.Generator().manual_seed(0), phase 4's) on the first
+    serving batch (N=1024, D=24, one window) and the first packed training
+    batch (N=744, D=32, 8 tiers): card (hand kernels) against CPU (plain
+    versions) per entry, a rerun of the card dump bitwise, and the bf16
+    model card against CPU. Returns {tag: (batch, counts per shape)} of
+    the float32 card dumps."""
+    import numpy as np
+    import torch
+    from x2gnn_tpu_torch.data.batching import batch_iterator, pad_budget_for
+    from x2gnn_tpu_torch.infer import quantize_budgets
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    from x2gnn_tpu_torch.utils.parity import dump_activations
+
+    t0 = time.perf_counter()
+    model = X2GNN(cfg, torch.Generator().manual_seed(0), device=device)
+    serving = next(batch_iterator(qm9, 32, budgets=quantize_budgets(
+        pad_budget_for(qm9, 32))))
+    batches = {"serving": serving, "packed": first_host_batch(packed)}
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    models = {
+        "cpu": X2GNN(cfg, torch.Generator().manual_seed(0), device="cpu"),
+        "bf16 card": X2GNN(bf16, torch.Generator().manual_seed(0),
+                           device=device),
+        "bf16 cpu": X2GNN(bf16, torch.Generator().manual_seed(0),
+                          device="cpu")}
+    for name, other in models.items():
+        for (n, p), q in zip(model.named_parameters(), other.parameters()):
+            if not torch.equal(p.cpu(), q.cpu()):
+                raise AssertionError(f"parity: {name} model's {n} differs")
+    out = {}
+    for tag, batch in batches.items():
+        n, d = batch.in_edges.shape
+        tag = f"{tag} N={n} D={d} windows={len(windows_of(batch))}"
+        on_card = batch.to(device)
+        got, shapes = dump_on_card(model, on_card, tag, cfg)
+        again, _ = dump_on_card(model, on_card, tag + " rerun", cfg)
+        if got.keys() != again.keys() or not all(
+                np.array_equal(got[k], again[k]) for k in got):
+            raise AssertionError(f"parity {tag}: two card dumps differ")
+        log(f"[parity {tag}] a rerun of the card dump is bitwise equal "
+            f"({len(got)} entries)")
+        ref = dump_activations(models["cpu"], batch.to("cpu"))
+        report_dumps(tag + " float32", got, ref, PARITY_SCALE)
+        del ref, again
+        got_bf16, _ = dump_on_card(models["bf16 card"], on_card,
+                                   tag + " bf16", bf16)
+        report_dumps(tag + " bf16", got_bf16,
+                     dump_activations(models["bf16 cpu"], batch.to("cpu")),
+                     BF16_GRAD_TOL, output_scale=BF16_PRED_TOL)
+        out[tag] = (batch, shapes)
+        del got, got_bf16
+    log(f"[phase 14] took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---- phase 15: the A12 cut's training curve against the JAX Trainer ----
+
+CURVE_FIXTURE = os.path.join(REPO, "tests", "torch_port_curve_jax.json")
+# the phase's gates (PERF.md §6, fixed before its first card run): per epoch
+# e, |port - JAX| / JAX of val_mae and of loss within max(3 x the noise
+# of e, 5e-3), the noise of e being the largest gap |twin - JAX| / JAX of
+# that metric between the JAX run and any of its perturbed twins at any
+# epoch up to e (rounding's effect on the curve grows with training; one
+# twin's gap at one epoch undersold it: the CPU port, the same function,
+# fell outside a single twin's 3x at epoch 2); the atomref fit and the
+# standardization within 1e-8 relative; occupancy_pairs bitwise; the
+# set's labels within 1e-9 relative (the eigensolver's threads move their
+# last bits) and its edge features within 1e-6 (each host builds the
+# integral engine with -march=native); the initial weights' sum |w| per
+# parameter within 1e-6 relative (QR in another LAPACK may round
+# otherwise)
+CURVE_GAP_FACTOR, CURVE_FLOOR = 3.0, 5e-3
+CURVE_METRICS = ("val_mae", "loss")
+STATS_RTOL = 1e-8
+LABEL_RTOL, FEAT_RTOL = 1e-9, 1e-6
+INIT_RTOL = 1e-6
+
+
+def curve_noise(fixture):
+    """{(epoch, metric): the largest |twin - JAX| / JAX over the fixture's
+    perturbed twins and the epochs up to this one}."""
+    ref = fixture["runs"]["jax"]
+    noise, worst = {}, dict.fromkeys(CURVE_METRICS, 0.0)
+    for e, r in enumerate(ref):
+        for m in CURVE_METRICS:
+            for twin in fixture["runs"]["perturbed"].values():
+                worst[m] = max(worst[m],
+                               abs(twin[e][m] - r[m]) / abs(r[m]))
+            noise[(r["epoch"], m)] = worst[m]
+    return noise
+
+
+def curve_gate(records, fixture):
+    """Rows (epoch, metric, port, JAX, |port - JAX| / JAX, limit, ok) of
+    each epoch of `records` against the fixture's JAX run; the limit is
+    max(CURVE_GAP_FACTOR x `curve_noise`, CURVE_FLOOR)."""
+    noise = curve_noise(fixture)
+    rows = []
+    for got, ref in zip(records, fixture["runs"]["jax"]):
+        for m in CURVE_METRICS:
+            limit = max(CURVE_GAP_FACTOR * noise[(ref["epoch"], m)],
+                        CURVE_FLOOR)
+            rel = abs(got[m] - ref[m]) / abs(ref[m])
+            rows.append((ref["epoch"], m, got[m], ref[m], rel, limit,
+                         rel <= limit))
+    return rows
+
+
+def _close(got, want, rtol):
+    return abs(got - want) <= rtol * abs(want)
+
+
+def set_checksums(graphs, first: int = 16) -> dict:
+    """Sums of a set's edge features and labels, and per molecule for its
+    first `first` molecules (float64 sums of the stored values): the
+    fixture's record of the A12 cut (tests/torch_port_make_curve.py)."""
+    import numpy as np
+
+    def one(g):
+        return {"atoms": int(len(g.numbers)),
+                "edges": int(g.edge_feat.shape[0]),
+                "edge_feat_sum": float(np.sum(g.edge_feat,
+                                              dtype=np.float64)),
+                "y": [float(v) for v in np.asarray(g.y, np.float64)]}
+    return {"molecules": len(graphs),
+            "atoms": int(sum(len(g.numbers) for g in graphs)),
+            "edge_feat_sum": float(sum(np.sum(g.edge_feat, dtype=np.float64)
+                                       for g in graphs)),
+            "y_sum": [float(v) for v in np.sum(
+                [np.asarray(g.y, np.float64) for g in graphs], axis=0)],
+            "first": [one(g) for g in graphs[:first]]}
+
+
+def check_curve_set(graphs, fixture):
+    """The built set against the fixture's checksums: atoms and edges
+    exactly, labels within LABEL_RTOL, edge features within FEAT_RTOL;
+    raises on a mismatch."""
+    want = fixture["set"]
+    got = set_checksums(graphs, len(want["first"]))
+    bad = [(key, got[key], want[key]) for key in ("molecules", "atoms")
+           if got[key] != want[key]]
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+    pairs_feat = [(got["edge_feat_sum"], want["edge_feat_sum"])]
+    pairs_y = list(zip(got["y_sum"], want["y_sum"]))
+    for i, (g, w) in enumerate(zip(got["first"], want["first"])):
+        if (g["atoms"], g["edges"]) != (w["atoms"], w["edges"]):
+            bad.append((f"molecule {i}", g, w))
+        pairs_feat.append((g["edge_feat_sum"], w["edge_feat_sum"]))
+        pairs_y += list(zip(g["y"], w["y"]))
+    worst_feat = max(rel(a, b) for a, b in pairs_feat)
+    worst_y = max(rel(a, b) for a, b in pairs_y)
+    log(f"[curve] set: {got['molecules']} molecules, {got['atoms']} atoms; "
+        f"edge feature sums (the set's and the first {len(got['first'])} "
+        f"molecules') within {worst_feat:.3e} relative (gate {FEAT_RTOL}), "
+        f"labels within {worst_y:.3e} (gate {LABEL_RTOL})")
+    if worst_feat > FEAT_RTOL or worst_y > LABEL_RTOL:
+        bad.append(("sums", worst_feat, worst_y))
+    if bad:
+        raise AssertionError(f"curve: the built set is not the fixture's: "
+                             f"{bad[:5]}")
+
+
+def curve_labels(graphs, tcfg):
+    """The training CLI's --atomref-fit --standardize (train/__main__.py,
+    train.py:257-270) with the port's functions: targets minus the
+    atomref fit on the train split, standardized. Returns (targets, std,
+    atomref table with str keys, mu, sigma)."""
+    import numpy as np
+    from x2gnn_tpu_torch.data.dataset import prepare_targets
+    from x2gnn_tpu_torch.data.molecule import fit_linear_atomref
+    from x2gnn_tpu_torch.train.trainer import make_split, resolve_division
+
+    targets = prepare_targets(graphs, tcfg.target)
+    n = len(graphs)
+    fit_idx, _, _ = make_split(n, tcfg.random_seed,
+                               resolve_division(n, tcfg.division))
+    pred, table = fit_linear_atomref([g.numbers for g in graphs], targets,
+                                     fit_idx)
+    targets = np.asarray(targets, np.float64) - pred
+    mu, sigma = float(np.mean(targets)), float(np.std(targets) + 1e-12)
+    targets = ((targets - mu) / sigma).astype(np.float32)
+    return targets, sigma, {str(k): v for k, v in table.items()}, mu, sigma
+
+
+def check_curve_stats(atomref, mu, sigma, fixture):
+    """The atomref table and the standardization within STATS_RTOL of the
+    fixture's."""
+    got = {**{f"atomref {k}": v for k, v in atomref.items()},
+           "mu": mu, "sigma": sigma}
+    want = {**{f"atomref {k}": v for k, v in fixture["atomref"].items()},
+            **fixture["standardization"]}
+    if got.keys() != want.keys():
+        raise AssertionError(f"curve: atomref elements {sorted(got)} vs "
+                             f"{sorted(want)}")
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+    worst = max(rel, key=rel.get)
+    log(f"[curve] atomref ({len(atomref)} terms) and standardization (mu "
+        f"{mu!r}, sigma {sigma!r}) within {rel[worst]:.3e} relative of "
+        f"the fixture's (worst {worst}; gate {STATS_RTOL})")
+    if rel[worst] > STATS_RTOL:
+        raise AssertionError(f"curve: {worst} {got[worst]!r} vs the "
+                             f"fixture's {want[worst]!r}")
+
+
+def curve_model(mcfg, device, fixture):
+    """The flagship from torch.Generator().manual_seed(the fixture's
+    seed) on `device`: its parameters are drawn on the CPU and moved, so
+    the card's bits are the CPU's (checked against a CPU build here), and
+    each parameter's sum |w| within INIT_RTOL of the fixture's."""
+    import numpy as np
+    import torch
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    from x2gnn_tpu_torch.utils.parity import export_params_flat
+
+    seed = fixture["init"]["seed"]
+    model = X2GNN(mcfg, torch.Generator().manual_seed(seed), device=device)
+    flat = export_params_flat(model)
+    cpu = export_params_flat(X2GNN(mcfg, torch.Generator().manual_seed(seed),
+                                   device="cpu"))
+    same = flat.keys() == cpu.keys() and all(
+        np.array_equal(flat[k], cpu[k]) for k in flat)
+    sums = fixture["init"]["abs_sums"]
+    if flat.keys() != sums.keys():
+        raise AssertionError("curve: the fixture's parameters are not the "
+                             "model's")
+    # zero-initialised biases sum to 0 on both sides
+    rel = max(abs(float(np.abs(v.astype(np.float64)).sum()) - sums[k])
+              / (sums[k] or 1.0) for k, v in flat.items())
+    log(f"[curve] initial weights from torch.Generator().manual_seed({seed})"
+        f", drawn on the CPU: the {device} model's {len(flat)} parameters "
+        f"{'are' if same else 'are NOT'} bitwise a CPU build's; sum |w| "
+        f"per parameter within {rel:.3e} relative of the fixture's (gate "
+        f"{INIT_RTOL})")
+    if not same or rel > INIT_RTOL:
+        raise AssertionError("curve: initial weights differ")
+    return model
+
+
+def training_curve(device, epochs=None, work=None):
+    """Phase 15 (A12's cut): the fixture's 1,024 molecules built by the
+    port's builder (a subprocess) and checked against the fixture's
+    checksums, the atomref fit and standardization checked, the flagship
+    recipe trained from the fixture's initial weights through
+    Trainer.fit(state=init_state()) for the fixture's epochs (or
+    `epochs`), and every epoch's val_mae and loss held to the fixture's
+    JAX curve by `curve_gate`; occupancy_pairs bitwise. On the card, the
+    launch counts are zeroed just before fit and read just after, and
+    the kernels are checked and timed on every tier of the first training
+    batch. Returns (records, gate rows, kernels rows)."""
+    import torch
+    from x2gnn_tpu_torch.data.dataset import load_graph_cache
+    from x2gnn_tpu_torch.ops.blocked_attn import reset_launch_counts
+    from x2gnn_tpu_torch.profile_training import flagship_training_configs
+    from x2gnn_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    with open(CURVE_FIXTURE) as f:
+        fixture = json.load(f)
+    epochs = epochs or fixture["epochs"]
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    mcfg, tcfg = flagship_training_configs()
+    own = work is None
+    work = work or tempfile.mkdtemp()
+    try:
+        n = fixture["builder"]["n"]
+        path = os.path.join(work, "a12_cut.npz")
+        t0 = time.perf_counter()
+        if not os.path.exists(path):
+            run_cli(["x2gnn_tpu_torch.data.make_synthetic", "--n", str(n),
+                     "--name", "a12_cut", "--cache-dir", work, "--workers",
+                     str(os.cpu_count()), "--basis", "6311", "--gap-label"],
+                    "A12 builder")
+        build_s = time.perf_counter() - t0
+        graphs = load_graph_cache(path)
+        log(f"[curve] builder: {n} molecules in {build_s:.1f} s, "
+            f"{build_s * 1e3 / n:.1f} ms per molecule over "
+            f"{os.cpu_count()} host cores")
+        check_curve_set(graphs, fixture)
+        targets, std, atomref, mu, sigma = curve_labels(graphs, tcfg)
+        check_curve_stats(atomref, mu, sigma, fixture)
+        model = curve_model(mcfg, device, fixture)
+        trainer = Trainer(model, mcfg, tcfg, graphs, targets,
+                          workdir=os.path.join(work, "run"), std=std,
+                          device=device)
+        split = {"test": len(trainer.test_idx), "val": len(trainer.val_idx),
+                 "train": len(trainer.train_idx)}
+        if split != fixture["split"]:
+            raise AssertionError(f"curve: split {split}, fixture "
+                                 f"{fixture['split']}")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, _ = trainer.fit(epochs=epochs, state=trainer.init_state())
+        if on_card:
+            torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts, shapes = launch_counts(), launch_shapes()
+        with open(os.path.join(work, "run", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        first = first_host_batch(trainer)
+        train_b = trainer.batches(trainer.train_idx)
+        val_w = n_windows(trainer.batches(trainer.val_idx))
+        test_w = n_windows(trainer.batches(trainer.test_idx))
+    finally:
+        if own:
+            shutil.rmtree(work, ignore_errors=True)
+    steps = len(train_b) * epochs
+    log(f"[curve] {split} molecules, {len(train_b)} packed steps per epoch, "
+        f"{epochs} epochs in {fit_s:.1f} s ({fit_s * 1e3 / steps:.1f} ms "
+        f"per step with evaluation); first batch N={first.in_edges.shape[0]}"
+        f", D={first.in_edges.shape[1]}, tiers {first.tiers}")
+    if len(records) != epochs or int(state.bad_steps) != 0 or int(
+            state.step) != steps:
+        raise AssertionError(f"curve: {len(records)} records, step "
+                             f"{int(state.step)} of {steps}, bad steps "
+                             f"{int(state.bad_steps)}")
+    occ = [r["occupancy_pairs"] for r in records]
+    log(f"[curve] occupancy_pairs {occ[0]!r} (fixture "
+        f"{fixture['occupancy_pairs']!r}, bitwise)")
+    if any(o != fixture["occupancy_pairs"] for o in occ):
+        raise AssertionError(f"curve: occupancy_pairs {occ}")
+    rows = curve_gate(records, fixture)
+    noise = curve_noise(fixture)
+    log("[curve] epoch | metric | port | JAX | |port - JAX| / JAX | twins' "
+        "noise | limit")
+    for epoch, m, got, ref, rel, limit, ok in rows:
+        log(f"[curve] {epoch} | {m} | {got!r} | {ref!r} | {rel:.3e} | "
+            f"{noise[(epoch, m)]:.3e} | {limit:.3e}{'' if ok else ' OVER'}")
+    bad = [r for r in rows if not r[-1]]
+    kernels = []
+    if on_card:
+        L = mcfg.conv_layers
+        train_w = n_windows(train_b) * epochs
+        improved = sum(r["test_mae"] is not None
+                       and r["val_mae"] == r["best_val_mae"]
+                       for r in records)
+        # fit(state=) evaluates the starting weights on the val set once
+        eval_w = val_w * (epochs + 1) + test_w * improved
+        expect = {"fwd": L * (train_w + eval_w), "bwd": L * train_w,
+                  "reduce": L * train_w}
+        log(f"[curve] launches {counts} (expected {expect})")
+        if counts != expect:
+            raise AssertionError(f"curve: launches {counts}, expected "
+                                 f"{expect}")
+        kernels = curve_kernel_rows(first.to(device), mcfg, shapes, counts)
+    log(f"[phase 15] took {time.perf_counter() - t_phase:.1f} s "
+        f"(builder {build_s:.1f} s, fit {fit_s:.1f} s)")
+    if bad:
+        raise AssertionError(f"curve: {len(bad)} gates over their limit: "
+                             f"{bad}")
+    return records, rows, kernels
+
+
+def curve_kernel_rows(batch, mcfg, shapes, counts):
+    """The three kernels against their plain versions, timed, on every
+    tier window of the A12 cut's first training batch; rows of the
+    kernels line with the launches of phase 15's run at each shape."""
+    fwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_fwd.cu"
+    bwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_bwd.cu"
+    args = batch_kernel_inputs(batch, mcfg, seed=150)
+    rows, reduces = [], []
+    for t, win in enumerate(windows_of(batch)):
+        fwd, (bwd, red) = check_window(
+            f"A12 tier {t}", window_args(args, win), mcfg, seed=151 + t,
+            fwd_timed=True, bwd_timed=True)
+        ichunk = win[3] > 40
+        note = f"A12 cut tier {t}, {win} of the first training batch"
+        rows += [
+            {"name": f"blocked_attn_fwd (A12 tier {t})", "route": "cuda",
+             "source": fwd_src,
+             "replaces": f"{PALLAS}:{282 if ichunk else 166}",
+             "launches": shapes["fwd"].get(window_shape(win), 0),
+             "window": note, **fwd},
+            {"name": f"blocked_attn_bwd (A12 tier {t})", "route": "cuda",
+             "source": bwd_src,
+             "replaces": f"{PALLAS}:{346 if ichunk else 198}",
+             "launches": shapes["bwd"].get(window_shape(win), 0),
+             "window": note, **bwd}]
+        reduces.append((win[1] - win[0], win, red))
+    _, win, red = max(reduces, key=lambda r: r[0])
+    rows.append({"name": "blocked_attn_bwd_reduce (A12 tiers)",
+                 "route": "cuda", "source": bwd_src,
+                 "replaces": f"{PALLAS}:271", "launches": counts["reduce"],
+                 "window": f"partials of A12 tier {win}", **red})
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3586,6 +4071,15 @@ def main() -> int:
         (packed_one_fwd, packed_one_bwd, packed_one_red))
     log(f"[phase 13] done at {time.perf_counter() - t_start:.1f} s")
 
+    # ---- 14. per-layer dumps, card against CPU, at full width ----
+    log(f"[phase 14] starts at {time.perf_counter() - t_start:.1f} s")
+    dumped = parity_dumps(cfg, device, qm9, packed)
+
+    # ---- 15. the A12 cut's training curve against the JAX Trainer ----
+    log(f"[phase 15] starts at {time.perf_counter() - t_start:.1f} s")
+    _, _, curve_rows = training_curve(device)
+    log(f"[phase 15] done at {time.perf_counter() - t_start:.1f} s")
+
     fwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_fwd.cu"
     bwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_bwd.cu"
 
@@ -3645,7 +4139,26 @@ def main() -> int:
          "source": bwd_src, "replaces": f"{PALLAS}:271",
          "launches": packed_counts["reduce"],
          "window": f"partials of packed tier {win}", **red})
-    kernels += gap_rows + bf16_rows + data_rows + parallel_rows
+    # phase 14's dumps launch the forward at the serving shape (phase 3's
+    # record) and at the packed batch's tiers (phase 6's records)
+    (serving_batch, serving_shapes), (_, packed_dump_shapes) = \
+        dumped.values()
+    kernels.append(
+        {"name": "blocked_attn_fwd (per-layer dump, serving batch)",
+         "route": "cuda", "source": fwd_src, "replaces": f"{PALLAS}:166",
+         "launches": serving_shapes["fwd"].get(
+             window_shape(windows_of(serving_batch)[0]), 0),
+         "window": "phase 14's card dump of the first serving batch, "
+                   "phase 3's record", **records["serving"]})
+    for t, (win, fwd, _, _) in enumerate(tiers):
+        kernels.append(
+            {"name": f"blocked_attn_fwd (per-layer dump, packed tier {t})",
+             "route": "cuda", "source": fwd_src,
+             "replaces": f"{PALLAS}:{282 if win[3] > 40 else 166}",
+             "launches": packed_dump_shapes["fwd"].get(window_shape(win), 0),
+             "window": f"phase 14's card dump of the first packed batch, "
+                       f"tier {win}, phase 6's record", **fwd})
+    kernels += gap_rows + bf16_rows + data_rows + parallel_rows + curve_rows
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise AssertionError(f"rows not launched on their path: {idle}")

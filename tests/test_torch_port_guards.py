@@ -42,7 +42,8 @@ def test_port_imports_no_jax_nor_the_jax_package():
                    "profile_training.py", "data/dataset.py",
                    "data/featurize.py", "evaluate.py", "infer.py",
                    "utils/determinism.py", "utils/torch_ckpt.py",
-                   "utils/profiling.py", "data/prefetch.py",
+                   "utils/profiling.py", "utils/parity.py",
+                   "data/prefetch.py",
                    "data/synthetic.py", "data/make_synthetic.py",
                    "data/integrals/basis.py", "data/integrals/md.py",
                    "data/integrals/engine.py", "models/x2gnn.py",
