@@ -196,6 +196,24 @@ Phases, each of which raises on failure (exit code != 0):
      (Trainer.fit(state=init_state())), each epoch's val_mae and loss held
      to the fixture's JAX curve (`curve_gate`), occupancy_pairs bitwise;
      the kernels checked and timed on every tier of its first batch.
+ 16. the evaluation and measurement scripts (`x2gnn_tpu_torch/scripts/`),
+     each through its `main`: (a) 24 AID-scale molecules (48-80 atoms)
+     labelled with their independent-particle energy in kcal/mol, written
+     as an AID-format xyz, `featurize_aid --chunk 8` (3 parts), `aid_cv`
+     3 folds x 3 epochs at batch 4 (launches held to conv_layers x the
+     windows of every step, evaluation and fold-out prediction; a window
+     with more than 40 key slots among them), fold 0 again in a fresh
+     workdir bitwise (result.json, every metrics record but the wall
+     clock's), fold 0's fold-out predictions from its ckpt_best.pt on the
+     card reproducing its test MAE bitwise and within MODEL_RTOL /
+     MODEL_ATOL of the CPU's, the three kernels checked and timed on every
+     window of its first training batch; (b) `profile_step` at batch 32
+     (no attention launch in no_kernel, 4 x the windows of each per step
+     in full); (c) `bench_infer` on 256 molecules beside phase 5's rate;
+     (d) `debug_ep_cost` at world size 1; (e) `bench_scaling` on one card
+     (its single line); (f) `pack_ab --report-only` over phase 6a's packed
+     and 6b's fixed-budget runs; (g) `pipeline_demo`: 2 streamed epochs of
+     4,096 geometry-only molecules.
 Each row of the kernels line takes its launches from a path that launches
 its shape, with the counts zeroed just before that path.
 The line before the last is a JSON object {"kernels": [...]}; the last
@@ -3787,6 +3805,328 @@ def curve_kernel_rows(batch, mcfg, shapes, counts):
     return rows
 
 
+# ---- phase 16: the evaluation and measurement scripts ----
+
+# AID-scale molecules (the real AID set's 451 have up to 77 atoms): sizes
+# around 64, so that a batch's top degree tier has more than 40 slots
+AID_SEED, AID_MOLECULES, AID_CHUNK = 16, 24, 8
+AID_FOLDS, AID_EPOCHS, AID_BATCH = 3, 3, 4
+# the recipe's warm-up (300 of 1,500 steps: 5 folds x 150 epochs x ~10
+# steps) scaled to the cut's 3 epochs of 4 steps
+AID_WARMUP = 3
+GEO_MOLECULES = 4096
+
+
+def aid_molecule(index):
+    """Molecule `index` of phase 16's AID-format set: its own seeded
+    geometry of 48-80 atoms, labelled with its independent-particle energy
+    on the x2sv basis, in kcal/mol. Module-level, for spawned workers."""
+    from x2gnn_tpu_torch.data.integrals.basis import get_basis
+    from x2gnn_tpu_torch.data.integrals.engine import one_electron_matrices
+    from x2gnn_tpu_torch.data.molecule import EV_TO_KCALMOL, Molecule
+    from x2gnn_tpu_torch.data.synthetic import (
+        HARTREE_TO_EV, independent_particle_energy, synthetic_geometry)
+    numbers, pos = synthetic_geometry(index, seed=AID_SEED, mean_atoms=64,
+                                      min_atoms=48, max_atoms=80)
+    s, h, _ = one_electron_matrices(numbers, pos, basis=get_basis("x2sv"))
+    energy = independent_particle_energy(numbers, pos, s, h)
+    return Molecule(numbers, pos, [energy * HARTREE_TO_EV * EV_TO_KCALMOL],
+                    index)
+
+
+def captured(fn, argv):
+    """fn(argv) with its standard output captured; that output is logged
+    and returned."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    out = buf.getvalue()
+    for line in out.strip().splitlines():
+        log(f"  | {line}")
+    if rc != 0:
+        raise AssertionError(f"{fn.__module__}: exit {rc}")
+    return out
+
+
+def aid_cross_validation(device, work):
+    """Phase 16a: an AID-format xyz of AID_MOLECULES molecules, featurized
+    by `scripts.featurize_aid` in parts of AID_CHUNK; `scripts.aid_cv`
+    over AID_FOLDS folds of AID_EPOCHS epochs at batch AID_BATCH, its
+    launches counted per window shape and held to conv_layers x the windows
+    of its steps, evaluations and fold-out predictions; fold 0 again in a
+    fresh workdir, result.json and every metrics record but the wall
+    clock's bitwise; fold 0's fold-out predictions from its ckpt_best.pt on
+    the card reproducing its test MAE bitwise and within MODEL_RTOL /
+    MODEL_ATOL of the CPU's (plain kernels); the three kernels checked and
+    timed on every window of the first training batch, one with more than
+    40 key slots. Returns the kernels line's rows."""
+    import numpy as np
+    import torch
+    from x2gnn_tpu_torch.config import ModelConfig, TrainConfig
+    from x2gnn_tpu_torch.data.dataset import load_dataset, worker_pool
+    from x2gnn_tpu_torch.data.molecule import write_xyz
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    from x2gnn_tpu_torch.ops.blocked_attn import reset_launch_counts
+    from x2gnn_tpu_torch.scripts import aid_cv, featurize_aid
+
+    t0 = time.perf_counter()
+    with worker_pool(os.cpu_count()) as pool:
+        mols = pool.map(aid_molecule, range(AID_MOLECULES))
+    xyz = os.path.join(work, "aid_scale.xyz")
+    write_xyz(xyz, mols)
+    label_s = time.perf_counter() - t0
+    sizes = [len(m.numbers) for m in mols]
+    log(f"[aid] {AID_MOLECULES} molecules of {min(sizes)}-{max(sizes)} atoms "
+        f"(mean {np.mean(sizes):.1f}) labelled in {label_s:.1f} s "
+        f"({label_s * 1e3 / AID_MOLECULES:.1f} ms per molecule, integrals "
+        f"and eigensolve, {os.cpu_count()} host cores)")
+    cache = os.path.join(work, "processed")
+    common = ["--cache-dir", cache, "--backend", "native"]
+    t0 = time.perf_counter()
+    captured(featurize_aid.main, ["--xyz", xyz, "--chunk", str(AID_CHUNK)]
+             + common)
+    feat_s = time.perf_counter() - t0
+    parts = -(-AID_MOLECULES // AID_CHUNK)
+    log(f"[aid] featurize_aid: {parts} parts of {AID_CHUNK} in {feat_s:.1f} s,"
+        f" {feat_s * 1e3 / AID_MOLECULES:.1f} ms per molecule ({os.cpu_count()}"
+        f" host cores); cache {sorted(os.listdir(cache))}")
+    if parts < 3 or os.listdir(cache) != ["aid_scale_native_c5.npz"]:
+        raise AssertionError(f"featurize_aid: {os.listdir(cache)}")
+    graphs = load_dataset(xyz, cache_dir=cache, backend="native")
+
+    cv_args = ["--data", xyz, "--folds", str(AID_FOLDS), "--epochs",
+               str(AID_EPOCHS), "--batch-size", str(AID_BATCH),
+               "--warmup-steps", str(AID_WARMUP)] + common
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cv = os.path.join(work, "cv")
+    out = captured(aid_cv.main, cv_args + ["--workdir", cv])
+    torch.cuda.synchronize()
+    cv_s = time.perf_counter() - t0
+    counts, shapes = launch_counts(), launch_shapes()
+    summary = json.loads(out)
+    with open(os.path.join(cv, "summary.json")) as f:
+        folds = json.load(f)["folds"]
+    log(f"[aid] aid_cv: {AID_FOLDS} folds x {AID_EPOCHS} epochs in "
+        f"{cv_s:.1f} s; test MAE {summary['test_mae_kcal']} kcal/mol, "
+        f"baseline {summary['baseline_mae_kcal']}")
+    if (sum(r["n_test"] for r in folds) != AID_MOLECULES
+            or not all(np.isfinite(list(v.values())).all()
+                       for v in summary.values())):
+        raise AssertionError(f"aid_cv: {folds}")
+
+    # fold 0 from its ckpt_best.pt, on the card and on the CPU
+    y = np.array([g.y[0] for g in graphs], dtype=np.float64)
+    parts_idx = aid_cv.fold_splits(len(graphs), AID_FOLDS, 41)
+    fold = aid_cv.prepare_fold(graphs, y, parts_idx, 0, AID_BATCH)
+    mcfg = ModelConfig(attention_layout="blocked", readout="atomwise")
+    tcfg = TrainConfig(batch_size=AID_BATCH, warmup_steps=AID_WARMUP,
+                       random_seed=41, ckpt_after_epoch=0)
+    ckpt = os.path.join(cv, "fold_0", "ckpt_best.pt")
+    preds, trainers = {}, {}
+    for dev in (device, torch.device("cpu")):
+        model = X2GNN(mcfg, torch.Generator().manual_seed(0), device=dev)
+        tr = aid_cv.fold_trainer(model, mcfg, tcfg, graphs, fold, "unused",
+                                 dev)
+        preds[dev.type] = aid_cv.fold_out_predictions(tr, tr.restore(ckpt),
+                                                      fold)
+        trainers[dev.type] = tr
+    test = fold["test_idx"]
+    mae = float(np.abs(preds["cuda"] - y[test]).mean())
+    if mae != folds[0]["test_mae_kcal"]:
+        raise AssertionError(f"aid fold 0: predictions from ckpt_best give "
+                             f"{mae!r}, result.json "
+                             f"{folds[0]['test_mae_kcal']!r}")
+
+    def standardized(p):
+        return (p - fold["atomref"][test] - fold["mu"]) / fold["sigma"]
+
+    got, ref = standardized(preds["cuda"]), standardized(preds["cpu"])
+    diff = np.abs(got - ref)
+    log(f"[aid] fold 0's {len(test)} fold-out predictions (standardized "
+        f"residuals), card vs CPU: max_abs {diff.max():.3e}, |pred| max "
+        f"{np.abs(ref).max():.3e}; the card's reproduce result.json's "
+        f"test MAE {mae!r} bitwise")
+    np.testing.assert_allclose(got, ref, rtol=MODEL_RTOL, atol=MODEL_ATOL)
+
+    # launches: conv_layers x the windows of every step, evaluation and
+    # fold-out prediction of every fold (one set of budgets for all)
+    first = trainers["cuda"].batches(trainers["cuda"].train_idx)[0]
+    windows = windows_of(first)
+    per_batch, train_w, eval_w = len(windows), 0, 0
+    for k, r in enumerate(folds):
+        with open(os.path.join(cv, f"fold_{k}", "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        improved = sum(m["test_mae"] is not None
+                       and m["val_mae"] == m["best_val_mae"] for m in recs)
+        n_val = max((AID_MOLECULES - r["n_test"]) // 8, AID_BATCH)
+        train_w += -(-r["n_train"] // AID_BATCH) * AID_EPOCHS
+        eval_w += (-(-n_val // AID_BATCH) * AID_EPOCHS
+                   + -(-r["n_test"] // AID_BATCH) * (improved + 1))
+    L = mcfg.conv_layers
+    expect = {"fwd": L * per_batch * (train_w + eval_w),
+              "bwd": L * per_batch * train_w,
+              "reduce": L * per_batch * train_w}
+    log(f"[aid] launches {counts} (expected {expect}: {L} layers x "
+        f"{per_batch} windows x ({train_w} steps + {eval_w} evaluation "
+        f"batches for the forward)); windows {windows} of N, D = "
+        f"{tuple(first.in_edges.shape)}")
+    if counts != expect:
+        raise AssertionError(f"aid_cv: launches {counts}, expected {expect}")
+    if not any(w[3] > 40 and shapes["bwd"].get(window_shape(w), 0)
+               for w in windows):
+        raise AssertionError(f"aid_cv: no window with more than 40 key "
+                             f"slots launched: {windows}")
+
+    # fold 0 again, in a fresh workdir: the same bits
+    cv2 = os.path.join(work, "cv_rerun")
+    captured(aid_cv.main, cv_args + ["--fold", "0", "--workdir", cv2])
+
+    def records(d):
+        with open(os.path.join(d, "fold_0", "metrics.jsonl")) as f:
+            return [{k: v for k, v in json.loads(line).items()
+                     if k != "seconds" and not k.endswith("_per_sec")}
+                    for line in f]
+
+    with open(os.path.join(cv2, "fold_0", "result.json")) as f:
+        again = json.load(f)
+    if again != folds[0] or records(cv2) != records(cv):
+        raise AssertionError(f"aid fold 0 rerun differs: {again} vs "
+                             f"{folds[0]}")
+    log(f"[aid] fold 0 rerun: result.json and {len(records(cv))} metrics "
+        "records bitwise the first run's (but the wall clock's)")
+
+    # the three kernels on every window of the first training batch
+    fwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_fwd.cu"
+    bwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_bwd.cu"
+    args = batch_kernel_inputs(first, mcfg, seed=160)
+    rows, reduces = [], []
+    for t, win in enumerate(windows):
+        fwd, (bwd, red) = check_window(
+            f"AID CV window {t}", window_args(args, win), mcfg, seed=161 + t,
+            fwd_timed=True, bwd_timed=True)
+        ichunk = win[3] > 40
+        note = f"AID CV window {t}, {win} of fold 0's first training batch"
+        rows += [
+            {"name": f"blocked_attn_fwd (AID CV, window {win})",
+             "route": "cuda", "source": fwd_src,
+             "replaces": f"{PALLAS}:{282 if ichunk else 166}",
+             "launches": shapes["fwd"].get(window_shape(win), 0),
+             "window": note, **fwd},
+            {"name": f"blocked_attn_bwd (AID CV, window {win})",
+             "route": "cuda", "source": bwd_src,
+             "replaces": f"{PALLAS}:{346 if ichunk else 198}",
+             "launches": shapes["bwd"].get(window_shape(win), 0),
+             "window": note, **bwd}]
+        reduces.append((win[1] - win[0], win, red))
+    _, win, red = max(reduces, key=lambda r: r[0])
+    rows.append({"name": "blocked_attn_bwd_reduce (AID CV)", "route": "cuda",
+                 "source": bwd_src, "replaces": f"{PALLAS}:271",
+                 "launches": counts["reduce"],
+                 "window": f"partials of AID CV window {win}", **red})
+    return rows
+
+
+def measurement_scripts(card, device, serving_rate, packed_records,
+                        fixed_records):
+    """Phase 16: the evaluation and measurement scripts
+    (`x2gnn_tpu_torch/scripts/`), each through its `main` as its command
+    line calls it: (a) `aid_cross_validation`; (b) `profile_step` on the
+    flagship at batch 32, every component printed, no attention launch in
+    `no_kernel` and conv_layers x the batch's windows of the forward and
+    the backward per step in `full`; (c) `bench_infer` on 256 molecules,
+    its rate beside phase 5's; (d) `debug_ep_cost` at world size 1; (e)
+    `bench_scaling` on the one card (its single line); (f) `pack_ab
+    --report-only` over phase 6a's packed and 6b's fixed-budget runs of the
+    recipe (2 epochs each on the same 512 molecules); (g) `pipeline_demo`
+    on a geometry-only cache of GEO_MOLECULES molecules, 2 streamed
+    epochs. Returns the kernels line's rows."""
+    from x2gnn_tpu_torch.config import ModelConfig
+    from x2gnn_tpu_torch.scripts import (
+        bench_infer, bench_scaling, debug_ep_cost, pack_ab, pipeline_demo,
+        profile_step)
+
+    t_phase = time.perf_counter()
+    times = {}
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        rows = aid_cross_validation(device, work)
+        times["a"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        ms, launches, windows = profile_step.profile(32, iters=5,
+                                                     device=device)
+        full = ms["full"]
+        log(json.dumps({"batch": 32, "components": {
+            k: {"ms": round(v, 3), "delta_vs_full_ms": round(full - v, 3)}
+            for k, v in ms.items()}}))
+        n = ModelConfig(attention_layout="blocked").conv_layers * windows
+        log(f"[profile_step] attention launches per step: {launches} "
+            f"(full: {n} = 4 layers x {windows} windows)")
+        if launches["no_kernel"] != {"fwd": 0.0, "bwd": 0.0} or \
+                launches["full"] != {"fwd": float(n), "bwd": float(n)}:
+            raise AssertionError(f"profile_step: launches {launches}")
+        times["b"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        out = captured(bench_infer.main, ["--molecules", "256"])
+        rate = json.loads(out.strip().splitlines()[-1])["value"]
+        log(f"[bench_infer] {rate} molecules/s on {card}; phase 5's "
+            f"throughput {serving_rate:.1f}")
+        times["c"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        out = captured(debug_ep_cost.main, [])
+        keys = [line.split()[0] for line in out.strip().splitlines()[1:]]
+        if keys != ["fwd_ms", "blocked_fwd_ms", "exchange_ms", "norm_ms",
+                    "kernel_fullD_ms", "geom_ms", "emb_ms"]:
+            raise AssertionError(f"debug_ep_cost: {keys}")
+        times["d"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        out = captured(bench_scaling.main, [])
+        lines = [json.loads(x) for x in out.strip().splitlines()]
+        if [x["mode"] for x in lines] != ["single"] or lines[0]["virtual"]:
+            raise AssertionError(f"bench_scaling: {lines}")
+        times["e"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        for name, recs in (("packed", packed_records),
+                           ("fixed", fixed_records)):
+            os.makedirs(os.path.join(work, name))
+            with open(os.path.join(work, name, "metrics.jsonl"), "w") as f:
+                f.writelines(json.dumps(r) + "\n" for r in recs)
+        ab = json.loads(captured(pack_ab.main, [
+            "--packed", os.path.join(work, "packed"), "--workdir",
+            os.path.join(work, "fixed"), "--mixed",
+            os.path.join(work, "no_mixed"), "--report-only"]))
+        want = [pack_ab.val_at_steps(fixed_records, r["steps"])
+                for r in ab["rows"]]
+        if [r["fixed_best_val"] for r in ab["rows"]] != want or \
+                ab["packed_steps_per_epoch"] != packed_records[0]["step"]:
+            raise AssertionError(f"pack_ab: {ab}")
+        times["f"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        run_cli(["x2gnn_tpu_torch.data.make_synthetic", "--n",
+                 str(GEO_MOLECULES), "--name", "geo", "--geometry-only",
+                 "--cache-dir", work, "--workers", str(os.cpu_count())],
+                "geometry-only builder")
+        demo = json.loads(captured(pipeline_demo.main, [
+            "--cache", os.path.join(work, "geo.npz"), "--division",
+            str(GEO_MOLECULES // 10), str(GEO_MOLECULES // 5), "--workdir",
+            os.path.join(work, "demo")]))
+        log(f"[pipeline_demo] {demo['steps_per_epoch']} streamed steps per "
+            f"epoch: {demo['ms_per_step_prefetch']:.3f} ms per step in epoch "
+            f"2 (evaluation included), epoch 1 {demo['epoch1_s']:.2f} s, "
+            f"epoch 2 {demo['epoch2_s']:.2f} s, on {card}")
+        times["g"] = time.perf_counter() - t0
+    log(f"[phase 16] took {time.perf_counter() - t_phase:.1f} s: " + ", ".join(
+        f"16{k} {v:.1f} s" for k, v in times.items()))
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3874,7 +4214,8 @@ def main() -> int:
     for _ in range(iters):
         pred.predict(qm9)
     dt = (time.perf_counter() - t0) / iters
-    log(f"[serve] throughput {len(qm9) / dt:.1f} molecules/s "
+    serving_rate = len(qm9) / dt
+    log(f"[serve] throughput {serving_rate:.1f} molecules/s "
         f"({dt * 1e3:.2f} ms per {len(qm9)} molecules, batch 32, "
         "incl. host batching)")
     budgets = quantize_budgets(pad_budget_for(qm9, 32))
@@ -4080,6 +4421,12 @@ def main() -> int:
     _, _, curve_rows = training_curve(device)
     log(f"[phase 15] done at {time.perf_counter() - t_start:.1f} s")
 
+    # ---- 16. the evaluation and measurement scripts ----
+    log(f"[phase 16] starts at {time.perf_counter() - t_start:.1f} s")
+    script_rows = measurement_scripts(card, device, serving_rate,
+                                      packed_records, fixed_records)
+    log(f"[phase 16] done at {time.perf_counter() - t_start:.1f} s")
+
     fwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_fwd.cu"
     bwd_src = "x2gnn_tpu_torch/ops/csrc/blocked_attn_bwd.cu"
 
@@ -4158,10 +4505,13 @@ def main() -> int:
              "launches": packed_dump_shapes["fwd"].get(window_shape(win), 0),
              "window": f"phase 14's card dump of the first packed batch, "
                        f"tier {win}, phase 6's record", **fwd})
-    kernels += gap_rows + bf16_rows + data_rows + parallel_rows + curve_rows
+    kernels += (gap_rows + bf16_rows + data_rows + parallel_rows + curve_rows
+                + script_rows)
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise AssertionError(f"rows not launched on their path: {idle}")
+    log(f"[chip_smoke] every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

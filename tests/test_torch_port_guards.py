@@ -51,7 +51,12 @@ def test_port_imports_no_jax_nor_the_jax_package():
                    "ops/basis.py", "data/batching.py", "parallel/mesh.py",
                    "parallel/data_parallel.py", "parallel/ep_model.py",
                    "parallel/hybrid.py", "parallel/edge_partition.py",
-                   "parallel/__init__.py", "__init__.py"):
+                   "parallel/__init__.py", "__init__.py",
+                   "scripts/aid_cv.py", "scripts/featurize_aid.py",
+                   "scripts/merge_chunks.py", "scripts/profile_step.py",
+                   "scripts/bench_infer.py", "scripts/debug_ep_cost.py",
+                   "scripts/bench_scaling.py", "scripts/pack_ab.py",
+                   "scripts/pipeline_demo.py"):
         assert f"x2gnn_tpu_torch/{module}" in scanned, module
     bad = [(str(p.relative_to(REPO)), name) for p in files
            for name in _imports(p)
@@ -138,9 +143,16 @@ def test_default_device_raises_without_a_card():
         Predictor(cfg, model)
 
 
-def test_training_entry_points_default_to_the_card():
+def test_training_entry_points_default_to_the_card(tmp_path):
+    """The Trainer, the training CLI and every `x2gnn_tpu_torch.scripts`
+    module that runs the model want the card unless given --device cpu
+    (the scripts' tests run each so: tests/test_torch_port_scripts_*.py);
+    featurize_aid and merge_chunks touch no device, and pack_ab only to
+    launch its arm."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
+    import importlib
+    import json
     import numpy as np
     from x2gnn_tpu_torch.config import ModelConfig, TrainConfig
     from x2gnn_tpu_torch.data.synthetic import synthetic_dataset
@@ -155,6 +167,92 @@ def test_training_entry_points_default_to_the_card():
         Trainer(model, cfg, TrainConfig(), graphs, np.zeros(4, np.float32))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--synthetic", "4"])
+    packed = tmp_path / "packed"
+    packed.mkdir()
+    (packed / "metrics.jsonl").write_text(json.dumps(
+        {"step": 1, "best_val_mae": 1.0}) + "\n")
+    argv = {"aid_cv": ["--data", str(tmp_path / "none.xyz")],
+            "profile_step": [], "bench_infer": [], "debug_ep_cost": [],
+            "bench_scaling": [],
+            "pack_ab": ["--packed", str(packed), "--workdir",
+                        str(tmp_path / "arm")],
+            "pipeline_demo": ["--cache", str(tmp_path / "none.npz")]}
+    scripts = sorted(p.stem for p in (REPO / "x2gnn_tpu_torch" /
+                                      "scripts").glob("[!_]*.py"))
+    assert scripts == sorted(set(argv) | {"featurize_aid", "merge_chunks"})
+    for name, args in argv.items():
+        main = importlib.import_module(f"x2gnn_tpu_torch.scripts.{name}").main
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(args)
+    assert not os.path.exists(tmp_path / "arm")
+
+
+# every file of the JAX package's scripts/ and bench.py: the port's
+# counterpart, or why it has none
+JAX_SCRIPTS = {
+    "aid_cv.py": "x2gnn_tpu_torch.scripts.aid_cv",
+    "bench_dropout.py": "chip_smoke.py phase 9 (the kernels' dropout mask)",
+    "bench_ep_kernel.py": "chip_smoke.py phase 13 (the kernel in the EP "
+                          "step)",
+    "bench_infer.py": "x2gnn_tpu_torch.scripts.bench_infer",
+    "bench_kernel_ba.py": "x2gnn_tpu_torch.ops.blocked_attn (fwd_plan, "
+                          "bwd_plan: the CUDA kernels' launch plans)",
+    "bench_kernel_lscaling.py": "chip_smoke.py (K=9, head widths), "
+                                "x2gnn_tpu_torch.profile_training",
+    "bench_large_degree.py": "chip_smoke.py phases 3, 6 and 16 (D > 40)",
+    "bench_scaling.py": "x2gnn_tpu_torch.scripts.bench_scaling",
+    "debug_ep_cost.py": "x2gnn_tpu_torch.scripts.debug_ep_cost",
+    "dist_smoke.py": "x2gnn_tpu_torch.parallel.mesh (initialize_distributed)",
+    "featurize_aid.py": "x2gnn_tpu_torch.scripts.featurize_aid",
+    "import_torch_ckpt.py": "x2gnn_tpu_torch.utils.torch_ckpt",
+    "make_synthetic_dataset.py": "x2gnn_tpu_torch.data.make_synthetic",
+    "merge_chunks.py": "x2gnn_tpu_torch.scripts.merge_chunks",
+    "pack_ab.py": "x2gnn_tpu_torch.scripts.pack_ab",
+    "pipeline_demo.py": "x2gnn_tpu_torch.scripts.pipeline_demo",
+    "prepare_qm9.py": "none: it downloads QM9, and the port downloads "
+                      "nothing",
+    "profile_step.py": "x2gnn_tpu_torch.scripts.profile_step",
+    "profile_trace.py": "x2gnn_tpu_torch.profile_training, "
+                        "Trainer.fit(profile_dir=)",
+    "run_flagship.sh": "x2gnn_tpu_torch.train --config "
+                       "runs/flagship_r5_regression/args.json",
+    "run_gap_molwise.sh": "x2gnn_tpu_torch.train --config "
+                          "runs/gap_molwise_r4/args.json",
+    "run_gap_r5.sh": "x2gnn_tpu_torch.train --config "
+                     "runs/gap_r5_50k/args.json",
+    "run_ref134k.sh": "x2gnn_tpu_torch.train --config "
+                      "runs/ref_scale_134k/args.json",
+    "../bench.py": "none: what a benchmark measures is a benchmark PR's "
+                   "BENCHMARK.json",
+}
+
+
+def test_every_jax_script_has_a_counterpart_or_a_reason():
+    """The table names every file of scripts/ (a new one fails here until
+    it is ported or given its reason); each module it names imports, and
+    each other counterpart names a module that imports, chip_smoke.py or
+    none with its reason."""
+    import importlib
+    files = {p.name for p in (REPO / "scripts").iterdir() if p.is_file()}
+    assert files | {"../bench.py"} == set(JAX_SCRIPTS)
+    for script, counterpart in JAX_SCRIPTS.items():
+        head = counterpart.split()[0].rstrip(",")
+        if head.startswith("x2gnn_tpu_torch."):
+            module = head
+            while module:
+                try:
+                    importlib.import_module(module)
+                    break
+                except ImportError:
+                    module = module.rpartition(".")[0]
+            assert module.count(".") >= 1, (script, counterpart)
+        else:
+            assert head in ("chip_smoke.py", "none:"), (script, counterpart)
+        if counterpart.startswith("x2gnn_tpu_torch.scripts."):
+            assert head == f"x2gnn_tpu_torch.scripts.{script[:-3]}"
+    for config in ("flagship_r5_regression", "gap_molwise_r4", "gap_r5_50k",
+                   "ref_scale_134k"):
+        assert (REPO / "runs" / config / "args.json").exists(), config
 
 
 def test_run_io_entry_points_default_to_the_card(tmp_path):
