@@ -218,6 +218,22 @@ Each row of the kernels line takes its launches from a path that launches
 its shape, with the counts zeroed just before that path.
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --a12-full [--deadline-s S] [--n N]
+
+runs A12 at full scale instead, and nothing else (`a12_full`): the port's
+builder makes the A12 set (`make_synthetic --n 50000 --name
+synthq50k_6311 --basis 6311 --gap-label`) in a temporary directory, its
+atomref fit and standardization are held to runs/flagship_r5_regression's
+within 1e-8, the training CLI runs the flagship recipe as written
+(`--config runs/flagship_r5_regression/args.json --atomref-fit
+--standardize --cache-batches on`) as a subprocess until its next epoch
+would end past S seconds (default 3300) from the start, and every
+complete epoch is held to both JAX runs' curves (`a12_gate`); the step,
+epoch and evaluation times, molecules/s and peak memory are printed
+beside the card's name and power limit. The ok line ends it only if every
+check passed, and only for the A12 set's 50,000 molecules: another N
+tries the mechanics without the JAX checks.
 """
 
 from __future__ import annotations
@@ -3602,24 +3618,25 @@ def curve_labels(graphs, tcfg):
     return targets, sigma, {str(k): v for k, v in table.items()}, mu, sigma
 
 
-def check_curve_stats(atomref, mu, sigma, fixture):
+def check_curve_stats(atomref, mu, sigma, fixture, tag="curve",
+                      source="the fixture's"):
     """The atomref table and the standardization within STATS_RTOL of the
-    fixture's."""
+    fixture's (a dict with its "atomref" and "standardization")."""
     got = {**{f"atomref {k}": v for k, v in atomref.items()},
            "mu": mu, "sigma": sigma}
     want = {**{f"atomref {k}": v for k, v in fixture["atomref"].items()},
             **fixture["standardization"]}
     if got.keys() != want.keys():
-        raise AssertionError(f"curve: atomref elements {sorted(got)} vs "
+        raise AssertionError(f"{tag}: atomref elements {sorted(got)} vs "
                              f"{sorted(want)}")
     rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
     worst = max(rel, key=rel.get)
-    log(f"[curve] atomref ({len(atomref)} terms) and standardization (mu "
+    log(f"[{tag}] atomref ({len(atomref)} terms) and standardization (mu "
         f"{mu!r}, sigma {sigma!r}) within {rel[worst]:.3e} relative of "
-        f"the fixture's (worst {worst}; gate {STATS_RTOL})")
+        f"{source} (worst {worst}; gate {STATS_RTOL})")
     if rel[worst] > STATS_RTOL:
-        raise AssertionError(f"curve: {worst} {got[worst]!r} vs the "
-                             f"fixture's {want[worst]!r}")
+        raise AssertionError(f"{tag}: {worst} {got[worst]!r} vs "
+                             f"{source} {want[worst]!r}")
 
 
 def curve_model(mcfg, device, fixture):
@@ -4127,12 +4144,427 @@ def measurement_scripts(card, device, serving_rate, packed_records,
     return rows
 
 
-def main() -> int:
+# ---- --a12-full: A12 at full scale, the flagship recipe on the whole set ----
+
+# the two JAX runs of the recipe on the A12 set (the same args.json but
+# max_epoch, the same atomref.json and standardization.json)
+A12_RUNS = ("flagship_r5_regression", "flagship_r4_mixed")
+A12_N, A12_NAME = 50000, "synthq50k_6311"
+# the mode's gates (PERF.md §6, fixed before its first card run): at least
+# A12_MIN_EPOCHS epochs; every record with bad_steps 0, a finite loss and
+# step = the reference's steps per epoch x epoch; occupancy_pairs bitwise
+# r5_regression's (the planner is held bitwise to the reference's); the
+# port's best_val_mae at most A12_EARLY_FACTOR x the larger of the two
+# JAX runs' at epochs 1-A12_EARLY_EPOCHS (the runs differ by 30% at epoch
+# 1) and A12_FACTOR x from there on (they differ by at most 9%), and the
+# best epoch's test_mae at the last epoch reached at most A12_FACTOR x the
+# larger JAX test_mae at that epoch; the atomref fit and the
+# standardization within STATS_RTOL of the reference's
+A12_MIN_EPOCHS = 5
+A12_EARLY_EPOCHS, A12_EARLY_FACTOR = 2, 1.5
+A12_FACTOR = 1.25
+# the mode stops the trainer when its next epoch would end past this many
+# seconds from the mode's start: a 3600 s call less the tail's time
+A12_DEADLINE_S = 3300.0
+A12_POLL_S = 5.0
+# training steps timed in-process after the run, on that many batches
+A12_TIMED_BATCHES = 40
+
+
+def a12_references(runs_dir=os.path.join(REPO, "runs")):
+    """The JAX records the mode is held to, read from `runs_dir`: each
+    run's metrics records, r5_regression's atomref table and
+    standardization, its steps per epoch and occupancy_pairs."""
+    def read(run, name):
+        with open(os.path.join(runs_dir, run, name)) as f:
+            if name.endswith(".jsonl"):
+                return [json.loads(line) for line in f if line.strip()]
+            return json.load(f)
+
+    curves = {run: read(run, "metrics.jsonl") for run in A12_RUNS}
+    first = curves[A12_RUNS[0]][0]
+    return {"curves": curves,
+            "atomref": read(A12_RUNS[0], "atomref.json"),
+            "standardization": read(A12_RUNS[0], "standardization.json"),
+            "steps_per_epoch": first["step"] // first["epoch"],
+            "occupancy_pairs": first["occupancy_pairs"]}
+
+
+def a12_gate(records, refs):
+    """The mode's gate on the port's metrics records. Returns (rows,
+    faults): rows (metric, epoch, port, r5, r4, port / the larger JAX
+    value, limit, ok) of best_val_mae at every epoch and of test_mae at
+    the last; faults, each check that failed as text. With `refs` None (a
+    set other than the A12 set) only the checks that need no JAX record:
+    one record at least, consecutive epochs, bad_steps 0, finite losses
+    and one step count per epoch."""
+    faults = []
+    if not records:
+        return [], ["no complete epoch"]
+    if refs is not None and len(records) < A12_MIN_EPOCHS:
+        faults.append(f"{len(records)} epochs reached, fewer than "
+                      f"{A12_MIN_EPOCHS}")
+    spe = (refs["steps_per_epoch"] if refs is not None
+           else records[0]["step"] // max(records[0]["epoch"], 1))
+    for i, r in enumerate(records, 1):
+        if r["epoch"] != i:
+            faults.append(f"record {i} is epoch {r['epoch']}")
+        if r["bad_steps"] != 0:
+            faults.append(f"epoch {i}: bad_steps {r['bad_steps']}")
+        if not math.isfinite(r["loss"]):
+            faults.append(f"epoch {i}: loss {r['loss']!r}")
+        if r["step"] != spe * i:
+            faults.append(f"epoch {i}: step {r['step']}, not {spe * i}")
+        if refs is not None and (r.get("occupancy_pairs")
+                                 != refs["occupancy_pairs"]):
+            faults.append(f"epoch {i}: occupancy_pairs "
+                          f"{r.get('occupancy_pairs')!r}, not "
+                          f"{refs['occupancy_pairs']!r}")
+    if refs is None:
+        return [], faults
+    curves = [refs["curves"][run] for run in A12_RUNS]
+    rows = []
+    for r in records:
+        e = r["epoch"]
+        if e > min(len(c) for c in curves):
+            faults.append(f"epoch {e}: no JAX record")
+            continue
+        factor = A12_EARLY_FACTOR if e <= A12_EARLY_EPOCHS else A12_FACTOR
+        jax_best = [c[e - 1]["best_val_mae"] for c in curves]
+        ratio = r["best_val_mae"] / max(jax_best)
+        rows.append(("best_val_mae", e, r["best_val_mae"], *jax_best,
+                     ratio, factor, ratio <= factor))
+    last = records[-1]
+    e = last["epoch"]
+    if e <= min(len(c) for c in curves):
+        jax_test = [c[e - 1]["test_mae"] for c in curves]
+        got = last["test_mae"]
+        ratio = math.inf if got is None else got / max(jax_test)
+        rows.append(("test_mae", e, got, *jax_test, ratio, A12_FACTOR,
+                     ratio <= A12_FACTOR))
+    faults += [f"{m} at epoch {e}: {got!r} is {ratio:.4f} x the larger "
+               f"JAX value ({max(r5, r4)!r}), over {limit}"
+               for m, e, got, r5, r4, ratio, limit, ok in rows if not ok]
+    return rows, faults
+
+
+def complete_records(path):
+    """The metrics records of the complete lines of `path` (each ends
+    with a newline; a line cut short by a kill is not one)."""
+    try:
+        with open(path) as f:
+            text = f.read()
+    except FileNotFoundError:
+        return []
+    return [json.loads(line) for line in text.split("\n")[:-1]]
+
+
+def stop_process(proc, grace: float = 30.0):
+    """Terminate `proc` and its process group, kill them after `grace`
+    seconds, and wait."""
+    import signal
+    if proc.poll() is not None:
+        return
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(proc.pid, signal.SIGTERM)
+    try:
+        proc.wait(grace)
+    except subprocess.TimeoutExpired:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def train_until(cmd, metrics, deadline, poll_s=A12_POLL_S, on_poll=None,
+                log_path=os.devnull, cwd=REPO):
+    """Run `cmd` (a trainer writing one line to `metrics` per epoch) in a
+    process group of its own and poll `metrics` every `poll_s` seconds;
+    stop it when its next epoch would end past `deadline` (a
+    time.perf_counter() value): the longest wall time between two
+    records after the first, or before the second record the first's,
+    from now. `on_poll(proc)` is called at every poll. Returns (the
+    complete records once the process has ended, its exit code, whether
+    it was stopped, {epoch: seconds from the start when its record was
+    first seen})."""
+    t0 = time.perf_counter()
+    seen = {}
+    stopped = False
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=cwd, stdout=out,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            while proc.poll() is None:
+                now = time.perf_counter()
+                for r in complete_records(metrics):
+                    seen.setdefault(r["epoch"], now - t0)
+                if on_poll is not None:
+                    on_poll(proc)
+                at = [0.0] + [seen[e] for e in sorted(seen)]
+                gaps = [b - a for a, b in zip(at, at[1:])]
+                next_epoch = max(gaps[1:] or gaps or [0.0])
+                if now + next_epoch + poll_s > deadline:
+                    stopped = True
+                    break
+                time.sleep(poll_s)
+        finally:
+            stop_process(proc)
+    records = complete_records(metrics)
+    for r in records:     # finished after the last poll
+        seen.setdefault(r["epoch"], time.perf_counter() - t0)
+    return records, proc.returncode, stopped, seen
+
+
+def _host_lines(cmd):
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()
+
+
+def a12_step_timings(graphs, targets, std, mcfg, tcfg, device, work):
+    """In-process timings of the recipe on the whole set, after the run:
+    the plan of the training split (seconds), the host assembly of a
+    packed batch (ms), a packed training step on the plan's first
+    A12_TIMED_BATCHES batches, cached (ms, CUDA events, median of 30;
+    the plan puts its largest molecules first, so these are its heaviest
+    steps), the val and test passes from the device cache (s, warm) and
+    the peak device memory of these steps (GB)."""
+    import torch
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    from x2gnn_tpu_torch.train.trainer import Trainer
+
+    model = X2GNN(mcfg, torch.Generator().manual_seed(0), device=device)
+    t0 = time.perf_counter()
+    trainer = Trainer(model, mcfg, tcfg, graphs, targets, workdir=work,
+                      std=std, device=device, cache_batches=True)
+    plan = trainer._plan_of(trainer.train_idx)
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = [trainer._assemble(e) for e in plan[:A12_TIMED_BATCHES]]
+    assemble_ms = (time.perf_counter() - t0) * 1e3 / len(host)
+    batches = [b.to(device) for b in host]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, state, _ = step_ms(trainer, trainer.init_state(), batches, reps=30)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    evals = {}
+    for name, idx in (("val", trainer.val_idx), ("test", trainer.test_idx)):
+        trainer.evaluate(state, idx)          # builds its device cache
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.evaluate(state, idx)
+        torch.cuda.synchronize()
+        evals[name] = time.perf_counter() - t0
+    return {"plan_s": plan_s, "plan_batches": len(plan),
+            "n_train": len(trainer.train_idx),
+            "assemble_ms": assemble_ms, "step_ms": ms,
+            "step_peak_gb": peak_gb, "val_s": evals["val"],
+            "test_s": evals["test"]}
+
+
+def a12_full(n=A12_N, deadline_s=A12_DEADLINE_S):
+    """A12 at full scale: the A12 set of `n` molecules built by the
+    port's builder, its atomref fit and standardization held to the JAX
+    run's, the flagship recipe trained by the training CLI until its next
+    epoch would end past `deadline_s` seconds from the start, and every
+    epoch held to the two JAX runs (`a12_gate`). Everything is written
+    into a temporary directory. With `n` other than A12_N the JAX checks
+    are skipped. Returns whether every check passed (always False for
+    another `n`: only the A12 set can pass)."""
+    import numpy as np
+    import torch
+    t_start = time.perf_counter()
+    if not torch.cuda.is_available():
+        raise RuntimeError("--a12-full: no CUDA device; the mode runs only "
+                           "on the card")
+    from x2gnn_tpu_torch.data.dataset import load_graph_cache
+    from x2gnn_tpu_torch.ops import _build
+    from x2gnn_tpu_torch.profile_training import flagship_training_configs
+
+    card = _host_lines(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"])[0]
+    print(card, flush=True)
+    deadline = t_start + deadline_s
+    full = n == A12_N
+    refs = a12_references() if full else None
+    if not full:
+        log(f"[a12] n={n}: a trial of the mechanics; the JAX checks are "
+            f"skipped and no ok line is printed (the acceptance run is "
+            f"n={A12_N})")
+    cores = len(os.sched_getaffinity(0))
+    mcfg, tcfg = flagship_training_configs()
+    device = torch.device("cuda")
+    for name, built in _build.build_all().items():
+        log(f"[a12] kernel {name}: {built.seconds:.2f} s nvcc")
+    work = tempfile.mkdtemp(prefix="a12_full_")
+    try:
+        for line in (_host_lines(["free", "-g"])
+                     + _host_lines(["df", "-h", work])):
+            log(f"[a12] host: {line}")
+        # 1. the set
+        t0 = time.perf_counter()
+        run_cli(["x2gnn_tpu_torch.data.make_synthetic", "--n", str(n),
+                 "--name", A12_NAME, "--basis", "6311", "--gap-label",
+                 "--workers", str(cores), "--cache-dir", work], "a12 build",
+                timeout=max(deadline - time.perf_counter(), 60))
+        build_s = time.perf_counter() - t0
+        npz = os.path.join(work, f"{A12_NAME}.npz")
+        log(f"[a12] build: {n} molecules in {build_s:.1f} s, "
+            f"{build_s * 1e3 / n:.2f} ms per molecule over {cores} host "
+            f"cores; {os.path.getsize(npz) / 1e9:.2f} GB npz")
+        for line in (_host_lines(["free", "-g"])
+                     + _host_lines(["df", "-h", work])):
+            log(f"[a12] host: {line}")
+        # 2. the atomref fit and the standardization
+        t0 = time.perf_counter()
+        graphs = load_graph_cache(npz)
+        targets, std, atomref, mu, sigma = curve_labels(graphs, tcfg)
+        log(f"[a12] loaded the set and fitted its labels in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if full:
+            check_curve_stats(atomref, mu, sigma, refs, tag="a12",
+                              source=f"runs/{A12_RUNS[0]}'s")
+        # 3. the recipe as a user runs it
+        run = os.path.join(work, "run")
+        metrics = os.path.join(run, "metrics.jsonl")
+        cmd = [sys.executable, "-m", "x2gnn_tpu_torch.train", "--config",
+               FLAGSHIP_ARGS, "--data-npz", npz, "--atomref-fit",
+               "--standardize", "--cache-batches", "on", "--workdir", run]
+        log(f"[a12] training: {' '.join(cmd[1:])}; stopped when its next "
+            f"epoch would end past {deadline_s:.0f} s from the start "
+            f"({deadline - time.perf_counter():.0f} s from now)")
+        samples = []
+
+        def sample(proc):
+            if proc.poll() is not None:
+                return
+            used = _host_lines(["nvidia-smi", "--query-gpu=memory.used",
+                                "--format=csv,noheader,nounits"])
+            with contextlib.suppress(OSError), \
+                    open(f"/proc/{proc.pid}/status") as f:
+                rss = [int(line.split()[1]) for line in f
+                       if line.startswith("VmRSS")]
+                if rss and rss[0] > 0:     # none once it is exiting
+                    samples.append((time.perf_counter(), int(used[0]),
+                                    rss[0] / 1e6))
+
+        t_train = time.perf_counter()
+        records, rc, stopped, seen = train_until(
+            cmd, metrics, deadline, on_poll=sample,
+            log_path=os.path.join(work, "train.log"))
+        train_s = time.perf_counter() - t_train
+        with open(os.path.join(work, "train.log")) as f:
+            for line in f.read().strip().splitlines()[-8:]:
+                log(f"[a12] trainer: {line}")
+        how = "stopped by the deadline" if stopped else "ended"
+        log(f"[a12] trainer {how} after {train_s:.1f} s (exit {rc}); "
+            f"{len(records)} complete "
+            f"epochs of {tcfg.max_epoch}: the run's cut")
+        if not stopped and rc != 0:
+            raise AssertionError(f"a12: the trainer exited {rc}")
+        if full:
+            # the files the training CLI wrote beside its run
+            with open(os.path.join(run, "atomref.json")) as f:
+                written = json.load(f)
+            with open(os.path.join(run, "standardization.json")) as f:
+                written_std = json.load(f)
+            check_curve_stats(written, written_std["mu"],
+                              written_std["sigma"], refs, tag="a12 CLI",
+                              source=f"runs/{A12_RUNS[0]}'s")
+        # 4. the gate
+        rows, faults = a12_gate(records, refs)
+        if rows:
+            log("[a12] metric | epoch | port | r5_regression | r4_mixed | "
+                "port / the larger JAX | limit | verdict")
+        for m, e, got, r5, r4, ratio, limit, ok in rows:
+            log(f"[a12] {m} | {e} | {got!r} | {r5!r} | {r4!r} | "
+                f"{ratio:.4f} | {limit} | {'pass' if ok else 'FAIL'}")
+        # 5. the timings
+        secs = [r["seconds"] for r in records]
+        log(f"[{card}] epoch seconds (wall clock, with evaluation and "
+            f"checkpoints): {', '.join(f'{s:.1f}' for s in secs)}")
+        if len(secs) > 1:
+            steady = statistics.median(secs[1:])
+            rate = statistics.median(r["molecules_per_sec"]
+                                     for r in records[1:])
+            log(f"[{card}] seconds per epoch with evaluation: median "
+                f"{steady:.1f} (epochs 2-{len(secs)}); the first epoch's "
+                f"extra seconds (batch planning, the device cache): "
+                f"{secs[0] - steady:.1f}; training molecules/s with "
+                f"evaluation: median {rate:.1f}")
+        log(f"[{card}] from the trainer's start to its first record "
+            f"{seen.get(1, math.nan):.1f} s (of which epoch 1 "
+            f"{secs[0] if secs else math.nan:.1f} s)")
+        if samples:
+            log(f"[{card}] peak device memory (nvidia-smi memory.used, the "
+                f"whole card) {max(s[1] for s in samples)} MiB; trainer "
+                f"host RSS peak {max(s[2] for s in samples):.2f} GB")
+            for e in sorted(seen):
+                at = t_train + seen[e]
+                near = min(samples, key=lambda s: abs(s[0] - at))
+                if near[0] > at + 2 * A12_POLL_S:
+                    continue      # the trainer had ended
+                log(f"[a12] at epoch {e}'s record: card {near[1]} MiB, "
+                    f"trainer RSS {near[2]:.2f} GB")
+        t0 = time.perf_counter()
+        timed = a12_step_timings(graphs, targets, std, mcfg, tcfg, device,
+                                 os.path.join(work, "timing"))
+        spe = records[0]["step"] if records else timed["plan_batches"]
+        log(f"[{card}] in-process after the run "
+            f"({time.perf_counter() - t0:.1f} s): plan of the training "
+            f"split {timed['plan_s']:.1f} s ({timed['plan_batches']} "
+            f"batches), host assembly "
+            f"{timed['assemble_ms']:.2f} ms per packed batch, "
+            f"{timed['step_ms']:.3f} ms per packed training step (median "
+            f"of 30 on the plan's first {A12_TIMED_BATCHES} batches, its "
+            f"largest molecules, cached; CUDA events), "
+            f"peak allocated {timed['step_peak_gb']:.2f} GB; val pass "
+            f"{timed['val_s']:.2f} s, test pass {timed['test_s']:.2f} s "
+            f"(cached, warm)")
+        train_only = spe * timed["step_ms"] / 1e3
+        log(f"[{card}] an epoch of such steps without evaluation: "
+            f"{train_only:.1f} s ({spe} steps x {timed['step_ms']:.3f} ms), "
+            f"{timed['n_train'] / train_only:.1f} training molecules/s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[a12] done in {time.perf_counter() - t_start:.1f} s")
+    if faults:
+        raise AssertionError(f"a12: {len(faults)} checks failed: {faults}")
+    return full
+
+
+def parse_args(argv=None):
+    import argparse
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--a12-full", action="store_true",
+                   help="run only A12 at full scale: the flagship recipe on "
+                        "the whole A12 set, held to the JAX runs")
+    p.add_argument("--deadline-s", type=float, default=A12_DEADLINE_S,
+                   help="--a12-full: stop training when its next epoch "
+                        "would end past this many seconds from the start")
+    p.add_argument("--n", type=int, default=A12_N,
+                   help="--a12-full: molecules to build; any other count "
+                        "than the A12 set's tries the mechanics only")
+    return p.parse_args(argv)
+
+
+def ok_line():
+    import torch
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the smoke test runs only on the "
               "card", file=sys.stderr)
         return 1
+    if args.a12_full:
+        if a12_full(args.n, args.deadline_s):
+            print(ok_line(), flush=True)
+        return 0
 
     import numpy as np
     from x2gnn_tpu_torch.config import ModelConfig
@@ -4513,9 +4945,7 @@ def main() -> int:
     log(f"[chip_smoke] every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    print(ok_line(), flush=True)
     return 0
 
 

@@ -56,7 +56,7 @@ def test_port_imports_no_jax_nor_the_jax_package():
                    "scripts/merge_chunks.py", "scripts/profile_step.py",
                    "scripts/bench_infer.py", "scripts/debug_ep_cost.py",
                    "scripts/bench_scaling.py", "scripts/pack_ab.py",
-                   "scripts/pipeline_demo.py"):
+                   "scripts/pipeline_demo.py", "scripts/prepare_qm9.py"):
         assert f"x2gnn_tpu_torch/{module}" in scanned, module
     bad = [(str(p.relative_to(REPO)), name) for p in files
            for name in _imports(p)
@@ -147,8 +147,8 @@ def test_training_entry_points_default_to_the_card(tmp_path):
     """The Trainer, the training CLI and every `x2gnn_tpu_torch.scripts`
     module that runs the model want the card unless given --device cpu
     (the scripts' tests run each so: tests/test_torch_port_scripts_*.py);
-    featurize_aid and merge_chunks touch no device, and pack_ab only to
-    launch its arm."""
+    featurize_aid, merge_chunks and prepare_qm9 touch no device, and
+    pack_ab only to launch its arm."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     import importlib
@@ -179,7 +179,8 @@ def test_training_entry_points_default_to_the_card(tmp_path):
             "pipeline_demo": ["--cache", str(tmp_path / "none.npz")]}
     scripts = sorted(p.stem for p in (REPO / "x2gnn_tpu_torch" /
                                       "scripts").glob("[!_]*.py"))
-    assert scripts == sorted(set(argv) | {"featurize_aid", "merge_chunks"})
+    assert scripts == sorted(set(argv) | {"featurize_aid", "merge_chunks",
+                                          "prepare_qm9"})
     for name, args in argv.items():
         main = importlib.import_module(f"x2gnn_tpu_torch.scripts.{name}").main
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -209,8 +210,7 @@ JAX_SCRIPTS = {
     "merge_chunks.py": "x2gnn_tpu_torch.scripts.merge_chunks",
     "pack_ab.py": "x2gnn_tpu_torch.scripts.pack_ab",
     "pipeline_demo.py": "x2gnn_tpu_torch.scripts.pipeline_demo",
-    "prepare_qm9.py": "none: it downloads QM9, and the port downloads "
-                      "nothing",
+    "prepare_qm9.py": "x2gnn_tpu_torch.scripts.prepare_qm9",
     "profile_step.py": "x2gnn_tpu_torch.scripts.profile_step",
     "profile_trace.py": "x2gnn_tpu_torch.profile_training, "
                         "Trainer.fit(profile_dir=)",

@@ -36,13 +36,20 @@ reference's flat conv computes them in it (:420-501); the output is
 float32 after the float32 skip. Dropout takes the same canonical
 pair-space mask as the blocked conv, cut per triplet through
 `drop_pair_pos` (:129-143, :153-165), so one mask drops the same weights
-in all three layouts. The flat conv draws no mask of its own:
-`X2GNN.forward` draws every conv's mask and hands it in.
+in all three layouts; `X2GNN.forward` draws every conv's mask and hands
+it in. Used alone, with `dropout` > 0, `deterministic=False` and no mask
+handed in, the flat conv draws an iid keep mask of its own from
+`generator` (:138-143, :162-165): per triplet in the segment layout, per
+neighbour slot in the padded one (`ops.attention.iid_dropout_mask`). An
+`attention_fn` replaces the attention (:69, :116-125): it is called as
+`attention_fn(q, k, v, e, s, trip_src, trip_dst, trip_mask, num_edges)`
+with the batch's triplet ids (0 at pad triplets) and returns (E, H, C);
+it takes no dropout, as in the reference.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -173,32 +180,47 @@ class EdgeAttentionConv(_ConvParameters):
     (x2gnn_tpu/nn/conv.py:57-184); `layout` picks one."""
 
     def __init__(self, channels: int, heads: int = 16,
-                 layout: str = "segment", **kw):
+                 layout: str = "segment",
+                 attention_fn: Optional[Callable] = None, **kw):
         if layout not in ("segment", "padded"):
             raise ValueError(f"layout={layout!r}: 'segment' or 'padded'")
         super().__init__(channels, heads, **kw)
         self.layout = layout
+        self.attention_fn = attention_fn
 
     def forward(self, x, rbf, sbf, edge_attr, tables: TripletTables,
                 dropout_mask: Optional[torch.Tensor] = None,
                 drop_pair_pos: Optional[torch.Tensor] = None,
-                return_attention_weights: bool = False):
+                return_attention_weights: bool = False,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         """x: (E, C) line-graph node (= atom-graph edge) features; rbf:
         (E, K) radial basis per edge; sbf: (T, L*K) per-triplet 2D basis;
         edge_attr: (T, emb) media-atom attributes per triplet; tables: the
         batch's `triplet_tables`. The keep mask `dropout_mask`
         (N, D, D, H), in the canonical pair space (`X2GNN.forward` draws
         it), is cut per triplet at `drop_pair_pos`
-        (`ops.attention.triplet_pair_positions`). Returns (E, C) float32,
-        or with return_attention_weights (segment layout only)
-        (out, (T, H))."""
+        (`ops.attention.triplet_pair_positions`); without one, dropout >
+        0 and `deterministic=False` draw an iid mask from `generator` (on
+        x's device). Returns (E, C) float32, or with
+        return_attention_weights (segment layout only) (out, (T, H))."""
         E = x.shape[0]
         H = self.heads
         C = self.channels // H
         dt = self.dtype
-        if return_attention_weights and self.layout != "segment":
+        if return_attention_weights and (self.layout != "segment"
+                                         or self.attention_fn is not None):
             raise ValueError("attention weights are only available in the "
                              "segment layout (x2gnn_tpu/nn/conv.py:511-515)")
+        drop_iid = (dropout_mask is None and self.dropout > 0.0
+                    and not deterministic)
+        if self.attention_fn is not None and (drop_iid or dropout_mask
+                                              is not None):
+            raise NotImplementedError(
+                "attention dropout with a custom attention_fn override is "
+                "unsupported (the override's signature carries no mask), as "
+                "in the reference (x2gnn_tpu/nn/conv.py:116-121); use a "
+                "built-in layout or dropout=0")
         x_src = x * self.lin_rbf(rbf)
         q = self.lin_query(x).reshape(E, H, C)
         k = self.lin_key(x_src).reshape(E, H, C)
@@ -214,9 +236,17 @@ class EdgeAttentionConv(_ConvParameters):
             per_trip = dropout_mask.reshape(-1, H)[drop_pair_pos]
             keep = (per_trip if self.layout == "segment"
                     else per_trip[tables.nbr_trip])
+        elif drop_iid:
+            valid = (tables.trip_mask if self.layout == "segment"
+                     else tables.nbr_mask)
+            keep = attention_ops.iid_dropout_mask(generator, self.dropout,
+                                                  valid, H)
 
         weights = None
-        if self.layout == "padded":
+        if self.attention_fn is not None:
+            out = self.attention_fn(q, k, v, e, s, tables.src.ids,
+                                    tables.dst.ids, tables.trip_mask, E)
+        elif self.layout == "padded":
             out = padded_attention(q, k, v, e, s, tables, dropout_mask=keep)
         else:
             out = segment_attention(q, k, v, e, s, tables, dropout_mask=keep,

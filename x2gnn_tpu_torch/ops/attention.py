@@ -86,6 +86,23 @@ def pair_dropout_mask(generator: Optional[torch.Generator], rate: float,
     return mask.bernoulli_(keep, generator=generator).div_(keep)
 
 
+def iid_dropout_mask(generator: Optional[torch.Generator], rate: float,
+                     valid: torch.Tensor, H: int) -> torch.Tensor:
+    """The standalone flat conv's keep mask (x2gnn_tpu/nn/conv.py:138-143,
+    :162-165): `valid.shape + (H,)` float32, each element of a valid row
+    1/(1 - rate) with probability 1 - rate, else 0, and 0 at every row
+    `valid` marks False (a pad triplet or neighbour slot, whose weight is
+    0 all the same). Drawn by torch.bernoulli from `generator` (None:
+    torch's default generator), which must live on `valid`'s device: per
+    triplet (`valid` the (T,) trip_mask) in the segment layout, per
+    neighbour slot ((E, D) nbr_mask) in the padded one."""
+    keep = 1.0 - rate
+    mask = torch.empty(valid.shape + (H,), dtype=torch.float32,
+                       device=valid.device)
+    mask.bernoulli_(keep, generator=generator).div_(keep)
+    return mask * valid[..., None]
+
+
 # the odd 64-bit constant that folds a rank into a dropout seed: rank 0
 # keeps the seed, each other rank gets another
 _RANK_FOLD = 0x9E3779B97F4A7C15
