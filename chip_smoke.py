@@ -234,6 +234,41 @@ epoch and evaluation times, molecules/s and peak memory are printed
 beside the card's name and power limit. The ok line ends it only if every
 check passed, and only for the A12 set's 50,000 molecules: another N
 tries the mechanics without the JAX checks.
+
+    python3 chip_smoke.py --multi-card
+
+runs the parallel paths on 4 cards of one host over NCCL instead, and
+nothing else (`multi_card`); with fewer than 4 cards, or none, it exits
+1 and prints no result. It builds the kernels once, logs the cards
+(index, name, power limit, UUID) and `nvidia-smi topo -m`, then starts 4
+ranks with `python -m torch.distributed.run --standalone
+--nproc-per-node 4 chip_smoke.py --multi-card-rank DIR`, each joining
+through the port's `initialize_distributed` (`mc_rank_phases`), on the
+flagship at full width with the seed-0 weights: (a) each rank on the card
+of its LOCAL_RANK, 4 distinct UUIDs, NCCL; (b) data parallelism, 3 steps
+over groups of 4 of phase 6's packed batches (the last ragged, with
+fillers), each step's reduced gradient and loss against the plain step of
+the group on the rank's card, the parameters the same bits on every rank
+after every step and on a rerun; (c) edge partitioning with both
+exchanges on the first packed batch (186 rows a rank) and on an AID-scale
+batch (32 molecules, D = 48 > 40: the i-chunked kernels), predictions and
+gradients against the single-card model on the batch as one window, ring
+bitwise the allgather, 4 launches of each kernel per rank, each rank's
+first window against the plain kernels on its card (phase 3's gates,
+timed), one EP step with the parameters the same bits on every rank;
+(d) DP x EP on 2 x 2 with both exchanges against the plain step over the
+two groups; (f) ms per step of the plain, DP, EP and DP x EP steps in
+turns, and of the row exchange per conv on every rank. Then (e) the
+training CLI under torch.distributed.run on 4 ranks: the flagship recipe
+on 512 synthetic molecules for 2 epochs with --data-parallel, 1 epoch
+and --resume to 2 (bitwise the 2-epoch run), 1 epoch with
+--edge-partition ring --dp-groups 2, each with its plan's step count and
+rank 0 alone writing, Predictor.from_run of the 2-epoch run on one card
+reproducing its logged val MAE; and `scripts.bench_scaling` on 4 ranks.
+Every launch has its own deadline inside the mode's 800 s; a launch still
+running at its deadline is stopped with every process it started and
+fails the mode naming its phase. Logs go to MC_OUT. The
+kernels line holds each rank's window rows; the ok line's count is 4.
 """
 
 from __future__ import annotations
@@ -2973,6 +3008,24 @@ def plain_grads(model, batch, masks=None):
                            zip(model.named_parameters(), g)}
 
 
+def group_grads(model, group, device):
+    """(loss, {name: gradient}) of one process stepping the real molecules
+    of `group` (host batches): each real batch's plain gradient and loss
+    weighted by its real graphs, the count-weighted mean that the data-
+    parallel all-reduce computes (a filler weighs nothing)."""
+    ref, n, loss = None, 0, 0.0
+    for b in group:
+        b = b.to(device)
+        cnt = int(b.graph_mask.sum())
+        if cnt == 0:
+            continue
+        lb, g = plain_grads(model, b)
+        ref = ({k: v * cnt for k, v in g.items()} if ref is None
+               else {k: ref[k] + v * cnt for k, v in g.items()})
+        n, loss = n + cnt, loss + float(lb) * cnt
+    return loss / n, {k: v / n for k, v in ref.items()}
+
+
 def split_grads(flat, model):
     """{name: view of `flat`} in the model's parameter order."""
     from x2gnn_tpu_torch.train.ema import unflatten
@@ -2990,18 +3043,13 @@ def dp_gloo_rank(rank, world, store, device, batches, mcfg, tcfg,
     gradient (one process stepping the group's molecules) and holds the
     all-reduced gradient to it; every rank records a digest of its
     parameters after each step."""
-    import hashlib
     import torch
     import torch.distributed as dist
     from x2gnn_tpu_torch.device import resolve_device
-    from x2gnn_tpu_torch.models.x2gnn import X2GNN
     from x2gnn_tpu_torch.parallel import (
         dp_batch_iterator, make_dp_train_step, make_mesh)
     from x2gnn_tpu_torch.parallel.data_parallel import reduced_gradients
-    from x2gnn_tpu_torch.train.ema import ema_init
     from x2gnn_tpu_torch.train.loss import smooth_l1_loss
-    from x2gnn_tpu_torch.train.optim import Optimizer
-    from x2gnn_tpu_torch.train.trainer import TrainState
 
     device = resolve_device(device, 0)
     if device.type == "cuda":
@@ -3010,12 +3058,9 @@ def dp_gloo_rank(rank, world, store, device, batches, mcfg, tcfg,
                             rank=rank, world_size=world)
     try:
         mesh = make_mesh()
-        model = X2GNN(mcfg, torch.Generator().manual_seed(0), device=device)
+        model = seed0_model(mcfg, device)
         leaves = list(model.parameters())
-        opt = Optimizer(tcfg)
-        zero = torch.zeros((), dtype=torch.int32, device=device)
-        state = TrainState(leaves, opt.init(leaves), ema_init(leaves), zero,
-                           zero.clone())
+        opt, state = fresh_state(model, tcfg)
         step = make_dp_train_step(model, opt, tcfg.ema_decay, mesh)
         records = []
         for lo in range(0, len(batches), world):
@@ -3027,26 +3072,15 @@ def dp_gloo_rank(rank, world, store, device, batches, mcfg, tcfg,
             rec = {"real": int(total), "loss": float(gloss),
                    "filler": not bool(mine.graph_mask.any())}
             if rank == 0:
-                ref, n, ref_loss = None, 0, 0.0
-                for b in group:
-                    b = b.to(device)
-                    cnt = int(b.graph_mask.sum())
-                    lb, g = plain_grads(model, b)
-                    ref = ({k: v * cnt for k, v in g.items()} if ref is None
-                           else {k: ref[k] + v * cnt for k, v in g.items()})
-                    n, ref_loss = n + cnt, ref_loss + float(lb) * cnt
+                want, ref = group_grads(model, group, device)
                 rec["worst"] = held_grads(
                     f"DP 2 ranks (gloo) step {len(records) + 1}",
-                    split_grads(flat, model),
-                    {k: v / n for k, v in ref.items()})
-                want = ref_loss / n
+                    split_grads(flat, model), ref)
                 if abs(float(gloss) - want) > 1e-5 * abs(want):
                     raise AssertionError(f"DP 2 ranks: loss {float(gloss)} "
                                          f"against {want}")
             state, _, _ = step(state, mine)
-            flat_p = torch.cat([p.detach().reshape(-1) for p in leaves])
-            rec["digest"] = hashlib.sha256(
-                flat_p.cpu().numpy().tobytes()).hexdigest()
+            rec["digest"] = params_digest(leaves)
             records.append(rec)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(records, f)
@@ -3100,22 +3134,25 @@ def dp_two_ranks_on_one_card(device, batches, mcfg, tcfg):
         f" {time.perf_counter() - t0:.1f} s")
 
 
+def piece_valid_pairs(piece):
+    """Valid (query, key) pairs of one rank's host EPBatch piece: the load
+    its kernel gets (host arithmetic, no card)."""
+    import numpy as np
+    valid = (piece.in_mask[:, :, None] & piece.out_mask[:, None, :]
+             & (piece.edge_src_blk[:, :, None]
+                != piece.out_dst_blk[:, None, :]))
+    return int(np.sum(valid))
+
+
 def ep_valid_pairs(host_batch, worlds=(1, 2, 4)):
     """Valid (query, key) pairs of each rank's piece of the batch's atoms
     at each EP size: the load each rank's kernel gets (contiguous pieces
     of degree-sorted atoms; host arithmetic, no card)."""
-    import numpy as np
     from x2gnn_tpu_torch.parallel import make_ep_batch
     out = {}
     for w in worlds:
         epb = make_ep_batch(host_batch, w)
-        per = []
-        for r in range(w):
-            p = epb.shard(r, w)
-            valid = (p.in_mask[:, :, None] & p.out_mask[:, None, :]
-                     & (p.edge_src_blk[:, :, None]
-                        != p.out_dst_blk[:, None, :]))
-            per.append(int(np.sum(valid)))
+        per = [piece_valid_pairs(epb.shard(r, w)) for r in range(w)]
         out[w] = per
         log(f"[parallel ep] {w} ranks of N={epb.numbers.shape[0]}: valid "
             f"pairs per rank {per}")
@@ -4532,6 +4569,1145 @@ def a12_full(n=A12_N, deadline_s=A12_DEADLINE_S):
     return full
 
 
+# ---- --multi-card: the parallel paths on four cards over NCCL ----
+
+MC_RANKS = 4
+# the whole mode, inside a 900 s limit
+MC_DEADLINE_S = 800.0
+# each torch.distributed.run's own deadline, capped by what the mode has
+# left: the rank group of (a)-(d) and (f), each training CLI run,
+# bench_scaling
+MC_RANKS_S, MC_CLI_S, MC_BENCH_S = 360.0, 200.0, 200.0
+MC_REPS = 20            # (f): timed steps and exchanges, median
+MC_CLI_N = 512          # (e): the CLI's --synthetic molecules
+# the mode's logs and results, in the output directory that .gitignore
+# lists
+MC_OUT = os.path.join(REPO, "chiprun_out", "multi_card")
+# the mode's gates (PERF.md §6, fixed before its first 4-card run):
+# gradients by held_grads (GRAD_RTOL of each element plus GRAD_ATOL of
+# the largest magnitude, the card-vs-CPU gate), the step's loss within
+# MC_LOSS_RTOL relative, EP predictions within MODEL_ATOL + MODEL_RTOL x
+# |ref| (phase 13c's), each rank's first window by phase 3's kernel
+# gates; bitwise: the parameters on every rank after every step, a rerun
+# of the DP steps, ring against allgather (predictions, gradients, the
+# loss, a step's parameters), the resumed CLI run against the straight
+# one; the val MAE of Predictor.from_run on the CLI run within
+# MC_MAE_RTOL of rank 0's logged one
+MC_LOSS_RTOL = 1e-5
+MC_MAE_RTOL = 1e-4
+
+
+def mc_torchrun(args, nproc=MC_RANKS):
+    """The command line that starts `args` (a script and its arguments,
+    or -m and a module) on `nproc` ranks of this host."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(nproc), *args]
+
+
+def child_pids(pid):
+    """Every process below `pid` (Linux /proc)."""
+    parent = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        parent[int(name)] = int(stat.rsplit(")", 1)[1].split()[1])
+    out, frontier = [], [pid]
+    while frontier:
+        ppid = frontier.pop()
+        kids = [c for c, p in parent.items() if p == ppid]
+        out += kids
+        frontier += kids
+    return out
+
+
+def _running(pid):
+    """`pid` exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def stop_tree(proc, grace: float = 10.0):
+    """SIGTERM `proc`, every process below it and their process groups
+    (torch.distributed.run starts each rank in a session of its own),
+    SIGKILL what is left after `grace` seconds, and wait for `proc`."""
+    import signal
+    pids = [proc.pid] + child_pids(proc.pid)
+    for sig, wait in ((signal.SIGTERM, grace), (signal.SIGKILL, 10.0)):
+        for pid in pids:
+            for kill in (os.killpg, os.kill):
+                with contextlib.suppress(ProcessLookupError,
+                                         PermissionError):
+                    kill(pid, sig)
+        end = time.monotonic() + wait
+        while proc.poll() is None or any(_running(p) for p in pids):
+            if time.monotonic() > end:
+                break
+            time.sleep(0.1)
+        else:
+            return
+    proc.wait()
+
+
+def mc_note(run_dir, rank, phase):
+    """Record in `run_dir` that `rank` entered `phase`: what a deadline's
+    message names."""
+    with open(os.path.join(run_dir, f"phase.rank{rank}"), "w") as f:
+        f.write(phase)
+
+
+def mc_where(run_dir):
+    """{rank: the phase it last entered} from the notes in `run_dir`."""
+    where = {}
+    for name in sorted(os.listdir(run_dir)):
+        if name.startswith("phase.rank"):
+            with open(os.path.join(run_dir, name)) as f:
+                where[int(name[len("phase.rank"):])] = f.read()
+    return where
+
+
+def mc_launch(cmd, phase, deadline_s, stem, run_dir=None):
+    """Run `cmd` (a torch.distributed.run command line) from the
+    repository root in a session of its own, its standard output into
+    stem.out and its standard error into stem.err, for at most
+    `deadline_s` seconds. At the deadline it and every process it started
+    are stopped (`stop_tree`) and AssertionError names `phase` and, from
+    the notes in `run_dir`, the phase each rank was in; a non-zero exit
+    raises with the end of its standard error. Returns (standard output,
+    standard error, seconds)."""
+    t0 = time.perf_counter()
+    with open(stem + ".out", "w") as out, open(stem + ".err", "w") as err:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=out, stderr=err,
+                                start_new_session=True)
+        try:
+            proc.wait(timeout=max(deadline_s, 1.0))
+        except subprocess.TimeoutExpired:
+            where = mc_where(run_dir) if run_dir else {}
+            stop_tree(proc)
+            raise AssertionError(
+                f"{phase}: still running at its deadline of "
+                f"{deadline_s:.0f} s, stopped with every process it started"
+                + (f"; the ranks were in {where}" if where else "")) from None
+        finally:
+            if proc.poll() is None:
+                stop_tree(proc)
+    seconds = time.perf_counter() - t0
+    with open(stem + ".out") as f:
+        stdout = f.read()
+    with open(stem + ".err") as f:
+        stderr = f.read()
+    if proc.returncode != 0:
+        tail = "\n".join(stderr.strip().splitlines()[-30:])
+        raise AssertionError(f"{phase}: exit {proc.returncode} after "
+                             f"{seconds:.1f} s; its standard error ends:\n"
+                             f"{tail}")
+    return stdout, stderr, seconds
+
+
+# the rank functions: fn(rank, world, device, ...) on every rank of an
+# initialized process group (the card's NCCL group in the mode, a gloo
+# group of CPU processes in tests/test_torch_port_multicard.py). Every
+# gate runs through mc_agree, so a failure raises on every rank at once
+# and no rank is left waiting in a later collective.
+
+def mc_agree(tag, check):
+    """`check()` on every rank; if it raised AssertionError on any rank,
+    every rank raises one naming each failing rank. Returns check()'s
+    value."""
+    try:
+        out, err = check(), None
+    except AssertionError as e:
+        out, err = None, str(e)
+    errors = gather_objects(err)
+    bad = [f"rank {r}: {e}" for r, e in enumerate(errors) if e is not None]
+    if bad:
+        raise AssertionError(f"{tag}: " + " | ".join(bad))
+    return out
+
+
+def gather_objects(obj):
+    """Every rank's `obj`, in rank order."""
+    import torch.distributed as dist
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def params_digest(leaves):
+    """sha256 of the parameters' bytes, in order."""
+    import hashlib
+    import torch
+    flat = torch.cat([p.detach().reshape(-1) for p in leaves])
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def same_bits(tag, values):
+    """Raise unless every rank's value (gathered) is the same."""
+    if len(set(values)) != 1:
+        raise AssertionError(f"{tag}: not the same bits on every rank "
+                             f"({values})")
+
+
+def loss_gate(tag, got, want):
+    if not abs(got - want) <= MC_LOSS_RTOL * abs(want):
+        raise AssertionError(f"{tag}: loss {got!r} against the plain "
+                             f"step's {want!r}")
+
+
+def pred_gate(tag, pred, ref):
+    """Phase 13c's gate on EP predictions against the blocked model's."""
+    import torch
+    err = (pred - ref).abs()
+    if not torch.isfinite(pred).all() or \
+            (err > MODEL_ATOL + MODEL_RTOL * ref.abs()).any():
+        raise AssertionError(f"{tag}: predictions differ (max_abs "
+                             f"{float(err.max()):.3e})")
+    return float(err.max())
+
+
+def launches_gate(tag, counts, n):
+    """`n` launches of each kernel: one per conv (one window per rank) on
+    the card."""
+    if counts != {"fwd": n, "bwd": n, "reduce": n}:
+        raise AssertionError(f"{tag}: launches {counts}, expected {n} of "
+                             "each")
+
+
+def ring_gate(tag, ring, allgather):
+    """The two exchanges' (predictions, flat gradients, loss) bitwise."""
+    import torch
+    for name, a, b in zip(("predictions", "gradients", "loss"), ring,
+                          allgather):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: ring and allgather {name} "
+                                 "differ")
+
+
+def placement_gate(records, world):
+    """(a): one record per rank; each on the card of its LOCAL_RANK (the
+    device index, the current device and LOCAL_RANK agree), NCCL, and
+    `world` distinct card UUIDs."""
+    if [r["rank"] for r in records] != list(range(world)):
+        raise AssertionError(f"placement: records of ranks "
+                             f"{[r['rank'] for r in records]}")
+    for r in records:
+        if not r["index"] == r["current"] == r["local_rank"]:
+            raise AssertionError(f"placement: rank {r['rank']} on card "
+                                 f"{r['index']} (current {r['current']}), "
+                                 f"LOCAL_RANK {r['local_rank']}")
+        if r["backend"] != "nccl":
+            raise AssertionError(f"placement: rank {r['rank']} over "
+                                 f"{r['backend']}")
+    uuids = [r["uuid"] for r in records]
+    if None in uuids or len(set(uuids)) != world:
+        raise AssertionError(f"placement: card UUIDs {uuids}")
+
+
+def seed0_model(mcfg, device):
+    """The flagship's seed-0 weights, as phase 13 makes them."""
+    import torch
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    return X2GNN(mcfg, torch.Generator().manual_seed(0), device=device)
+
+
+def fresh_state(model, tcfg):
+    """(optimizer, the initial TrainState over the model's parameters)."""
+    import torch
+    from x2gnn_tpu_torch.train.ema import ema_init
+    from x2gnn_tpu_torch.train.optim import Optimizer
+    from x2gnn_tpu_torch.train.trainer import TrainState
+    leaves = list(model.parameters())
+    opt = Optimizer(tcfg)
+    zero = torch.zeros((), dtype=torch.int32, device=leaves[0].device)
+    return opt, TrainState(leaves, opt.init(leaves), ema_init(leaves), zero,
+                           zero.clone())
+
+
+def restore_params(leaves, start):
+    import torch
+    with torch.no_grad():
+        for p, s in zip(leaves, start):
+            p.copy_(s)
+
+
+def sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def timed_ms(fn, device, reps, warmup=3, barrier=False):
+    """Median ms of one fn() over `reps` calls after `warmup`: CUDA events
+    on the card (the host clock on the CPU, for the tests only); with
+    `barrier`, every rank enters each call together."""
+    import torch
+    import torch.distributed as dist
+    for _ in range(warmup):
+        fn()
+    sync(device)
+    times = []
+    for _ in range(reps):
+        if barrier:
+            dist.barrier()
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            times.append((start, end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    sync(device)
+    if device.type == "cuda":
+        times = [s.elapsed_time(e) for s, e in times]
+    return statistics.median(times)
+
+
+def mc_packed_hosts(mcfg, tcfg, graphs, count):
+    """The first `count` host batches of the train split's plan, as phase
+    6's Trainer plans and assembles them (packed, degree-sorted, tiered);
+    no weights or card needed."""
+    import numpy as np
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    from x2gnn_tpu_torch.train.trainer import Trainer
+    targets = np.array([g.y[0] for g in graphs], np.float32)
+    t = Trainer(X2GNN(mcfg, device="cpu"), mcfg, tcfg, graphs, targets,
+                workdir="unused", device="cpu")
+    plan = t._plan_of(t.train_idx)
+    if len(plan) < count:
+        raise ValueError(f"{len(plan)} planned batches, {count} wanted")
+    return [t._assemble(e) for e in plan[:count]]
+
+
+def whole_batch(graphs):
+    """`graphs` as one host batch at pad_budget_for's budgets."""
+    from x2gnn_tpu_torch.data.batching import pad_budget_for, pad_graphs
+    return pad_graphs(graphs, pad_budget_for(graphs, len(graphs)))
+
+
+def mc_placement(rank, world, device):
+    """(a): every rank's card (index, current device, UUID, name), its
+    LOCAL_RANK and the group's backend, gathered and gated."""
+    import torch
+    import torch.distributed as dist
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    rec = {"rank": rank, "local_rank": int(os.environ.get("LOCAL_RANK", -1)),
+           "index": device.index if cuda else None,
+           "current": torch.cuda.current_device() if cuda else None,
+           "uuid": (str(torch.cuda.get_device_properties(device).uuid)
+                    if cuda else None),
+           "name": torch.cuda.get_device_name(device) if cuda else "cpu",
+           "backend": dist.get_backend()}
+    records = gather_objects(rec)
+    for r in records:
+        log(f"[multi-card (a)] rank {r['rank']} LOCAL_RANK {r['local_rank']}"
+            f": cuda:{r['index']} (current {r['current']}), {r['name']}, "
+            f"UUID {r['uuid']}, {r['backend']}")
+    placement_gate(records, world)
+    return records
+
+
+def mc_dp(rank, world, device, mcfg, tcfg, hosts):
+    """(b) data parallelism: the seed-0 model takes one step per group of
+    `world` consecutive host batches of `hosts` (the last group ragged:
+    `empty_like_batch` fillers on the ranks past its batches), each rank
+    its member through `dp_batch_iterator`. Before each step every rank
+    computes the all-reduced gradient and loss of its member and, on its
+    own device, the plain step of the whole group (`group_grads`), and
+    holds one to the other; after each step the parameters are the same
+    bits on every rank; the steps run again from the same start give the
+    same bits; no step is skipped."""
+    import torch
+    from x2gnn_tpu_torch.parallel import (
+        dp_batch_iterator, make_dp_train_step, make_mesh)
+    from x2gnn_tpu_torch.parallel.data_parallel import reduced_gradients
+    from x2gnn_tpu_torch.train.loss import smooth_l1_loss
+    device = torch.device(device)
+    mesh = make_mesh()
+    groups = [hosts[lo:lo + world] for lo in range(0, len(hosts), world)]
+    if len(groups[-1]) == world:
+        raise ValueError(f"{len(hosts)} batches over {world} ranks leave "
+                         "no ragged group")
+    model = seed0_model(mcfg, device)
+    leaves = list(model.parameters())
+    start = [p.detach().clone() for p in leaves]
+
+    def run(check):
+        restore_params(leaves, start)
+        opt, state = fresh_state(model, tcfg)
+        step = make_dp_train_step(model, opt, tcfg.ema_decay, mesh)
+        rows = []
+        for i, group in enumerate(groups, 1):
+            mine = next(dp_batch_iterator(group, world, rank)).to(device)
+            row = {"graphs_here": int(mine.graph_mask.sum())}
+            if check:
+                tag = f"DP {world} ranks, step {i}"
+                loss = smooth_l1_loss(model(mine), mine.y,
+                                      mask=mine.graph_mask)
+                flat, gloss, total = reduced_gradients(
+                    loss, leaves, mine.graph_mask.sum())
+                want, ref = group_grads(model, group, device)
+                row.update(graphs=int(total), loss=float(gloss),
+                           plain_loss=want)
+                row["worst"] = mc_agree(
+                    f"{tag}: gradients",
+                    lambda: held_grads(tag, split_grads(flat, model), ref))
+                mc_agree(f"{tag}: loss",
+                         lambda: loss_gate(tag, float(gloss), want))
+            state, _, _ = step(state, mine)
+            row["digest"] = params_digest(leaves)
+            rows.append(row)
+        return rows, int(state.bad_steps)
+
+    rows, bad = run(check=True)
+    again, _ = run(check=False)
+    restore_params(leaves, start)
+    every = gather_objects([r["digest"] for r in rows])
+    for i in range(len(rows)):
+        same_bits(f"DP step {i + 1}: the parameters", [d[i] for d in every])
+
+    def rerun():
+        if [r["digest"] for r in again] != [r["digest"] for r in rows]:
+            raise AssertionError("DP: a rerun of the steps differs")
+        if bad:
+            raise AssertionError(f"DP: {bad} steps skipped")
+
+    mc_agree("DP rerun", rerun)
+    for i, r in enumerate(rows, 1):
+        log(f"[multi-card (b)] DP step {i}: {r['graphs']} real graphs over "
+            f"{world} ranks ({r['graphs_here']} here), loss {r['loss']!r} "
+            f"(plain {r['plain_loss']!r}), largest max|err|/max|g| "
+            f"{r['worst']:.3e}, parameters the same bits on every rank")
+    log(f"[multi-card (b)] DP: {len(rows)} steps, the last group "
+        f"{len(groups[-1])} batches of {world}; a rerun bitwise")
+    return {"steps": [{k: v for k, v in r.items() if k != "digest"}
+                      for r in rows], "digest": rows[-1]["digest"]}
+
+
+def first_ep_window(model, local, mesh):
+    """The attention inputs (q, k, v, e, rbf, W, bias, z, a_ids, b_ids) of
+    the first kernel call of this rank's EP forward: conv 0's window
+    (Nl, D, D), detached copies."""
+    import torch
+    from x2gnn_tpu_torch.parallel import ep_model, make_ep_forward
+    seen = []
+    call = ep_model.blocked_attention
+
+    def spy(*args, **kw):
+        if not seen:
+            seen.append(tuple(a.detach().clone() for a in args[:10]))
+        return call(*args, **kw)
+
+    ep_model.blocked_attention = spy
+    try:
+        with torch.no_grad():
+            make_ep_forward(mesh)(model, local)
+    finally:
+        ep_model.blocked_attention = call
+    return seen[0]
+
+
+def exchange_ms(local, mesh, mode, width, reps):
+    """(f): median ms of one row exchange (`ep_model.py::exchange`, a
+    conv's K, V and radial rows, (Nl·D, width) float32) on this rank,
+    every rank entering each call together."""
+    import torch
+    from x2gnn_tpu_torch.parallel.ep_model import _Axis, exchange
+    Nl, D = local.in_mask.shape
+    device = local.in_mask.device
+    x = torch.randn((Nl * D, width),
+                    generator=torch.Generator().manual_seed(7)).to(device)
+    axis = _Axis.of(mesh, mode)
+    return timed_ms(lambda: exchange(x, local, axis), device, reps,
+                    barrier=True)
+
+
+def mc_ep(rank, world, device, mcfg, tcfg, batches, reps):
+    """(c) edge partitioning over every rank, for each host batch of
+    `batches` ({name: GraphBatch}) and each exchange: the seed-0 model's
+    predictions against the single-device blocked model on the batch as
+    one window, every reduced gradient against its plain step, ring
+    bitwise the allgather, one launch of each kernel per conv; this
+    rank's first window against the plain kernels (on the card) and the
+    row exchange timed. Then one EP training step on the first batch per
+    exchange: the parameters the same bits on every rank and in both
+    exchanges, the launches of a step."""
+    import torch
+    from x2gnn_tpu_torch.ops.blocked_attn import reset_launch_counts
+    from x2gnn_tpu_torch.parallel import (
+        make_ep_batch, make_ep_forward, make_ep_train_step, make_mesh,
+        shard_ep_batch)
+    from x2gnn_tpu_torch.parallel.data_parallel import reduced_gradients
+    from x2gnn_tpu_torch.parallel.ep_model import KV_EXCHANGES
+    from x2gnn_tpu_torch.train.loss import smooth_l1_loss
+    device = torch.device(device)
+    mesh = make_mesh()
+    model = seed0_model(mcfg, device)
+    leaves = list(model.parameters())
+    # one launch of each kernel per conv on the card; the plain versions
+    # on the CPU launch and count nothing
+    L = mcfg.conv_layers if device.type == "cuda" else 0
+    width = 2 * mcfg.in_channels + mcfg.sbf_dim * mcfg.rbf_dim
+    out, first = {}, None
+    for name, hb in batches.items():
+        tag = f"EP {world} ranks, {name}"
+        epb = make_ep_batch(hb, world)
+        local = shard_ep_batch(epb, mesh, device)
+        if first is None:
+            first = local
+        one = dataclasses.replace(hb, tiers=(), n_hi=0, d_lo=0).to(device)
+        with torch.no_grad():
+            ref_pred = model(one)
+        _, ref = plain_grads(model, one)
+        got, rec = {}, {}
+        for mode in KV_EXCHANGES:
+            mtag = f"{tag}, {mode}"
+            reset_launch_counts()
+            pred = make_ep_forward(mesh, mode)(model, local)
+            loss = smooth_l1_loss(pred, local.y, mask=local.graph_mask)
+            flat, gloss, _ = reduced_gradients(loss, leaves,
+                                               local.graph_mask.sum())
+            sync(device)
+            counts = launch_counts()
+            pred = pred.detach()
+            got[mode] = (pred, flat, gloss)
+            rec[f"pred_err_{mode}"] = mc_agree(
+                f"{mtag}: predictions", lambda: pred_gate(mtag, pred,
+                                                          ref_pred))
+            rec[f"worst_{mode}"] = mc_agree(
+                f"{mtag}: gradients", lambda: held_grads(
+                    mtag, split_grads(flat, model), ref))
+            mc_agree(f"{mtag}: launches",
+                     lambda: launches_gate(mtag, counts, L))
+            rec["launches"] = counts
+        mc_agree(f"{tag}: exchanges",
+                 lambda: ring_gate(tag, got["ring"], got["allgather"]))
+        Nl, D = local.in_mask.shape
+        rec.update(N=int(epb.numbers.shape[0]), Nl=int(Nl), D=int(D),
+                   valid_pairs=piece_valid_pairs(epb.shard(rank, world)))
+        args = first_ep_window(model, local, mesh)
+        rec["window"] = list(args[0].shape[:2]) + [int(args[1].shape[1])]
+        if device.type == "cuda":
+            fwd, (bwd, red) = mc_agree(
+                f"{tag}: the window's kernels", lambda: check_window(
+                    f"EP rank {rank} {name}", args, mcfg, seed=50 + rank,
+                    fwd_timed=True, bwd_timed=True))
+            rec.update(fwd=fwd, bwd=bwd, reduce=red)
+        rec["exchange_ms"] = {m: exchange_ms(local, mesh, m, width, reps)
+                              for m in KV_EXCHANGES}
+        pairs = gather_objects(rec["valid_pairs"])
+        log(f"[multi-card (c)] {tag}: N={rec['N']}, {Nl} rows and D={D} "
+            f"here, valid pairs per rank {pairs}; predictions within "
+            f"{rec['pred_err_ring']:.3e} of the blocked model, gradients "
+            f"{rec['worst_ring']:.3e} of max|g|, ring = allgather bitwise, "
+            f"launches {rec['launches']}; row exchange "
+            + ", ".join(f"{m} {v:.4f} ms" for m, v in
+                        rec["exchange_ms"].items()) + " per conv")
+        out[name] = rec
+    # one EP training step per exchange on the first batch
+    local = first
+    start = [p.detach().clone() for p in leaves]
+    steps = {}
+    for mode in KV_EXCHANGES:
+        restore_params(leaves, start)
+        opt, state = fresh_state(model, tcfg)
+        step = make_ep_train_step(model, opt, tcfg.ema_decay, mesh, mode,
+                                  tcfg.random_seed)
+        reset_launch_counts()
+        state, loss, _ = step(state, local)
+        sync(device)
+        counts = launch_counts()
+        mc_agree(f"EP step ({mode}): launches",
+                 lambda: launches_gate(f"EP step ({mode})", counts, L))
+        digest = params_digest(leaves)
+        same_bits(f"EP step ({mode}): the parameters",
+                  gather_objects(digest))
+        steps[mode] = {"loss": float(loss), "digest": digest,
+                       "launches": counts, "bad_steps": int(state.bad_steps)}
+    restore_params(leaves, start)
+
+    def step_gate():
+        if steps["ring"]["digest"] != steps["allgather"]["digest"]:
+            raise AssertionError("EP step: ring and allgather parameters "
+                                 "differ")
+        if any(s["bad_steps"] for s in steps.values()):
+            raise AssertionError(f"EP step skipped: {steps}")
+
+    mc_agree("EP step", step_gate)
+    log(f"[multi-card (c)] one EP step per exchange: loss "
+        f"{steps['ring']['loss']!r}, parameters the same bits on every "
+        f"rank and in both exchanges, launches {steps['ring']['launches']}")
+    out["steps"] = steps
+    return out
+
+
+def mc_hybrid(rank, world, device, mcfg, tcfg, hosts):
+    """(d) DP x EP on a (2, world / 2) layout: row i splits host batch
+    `hosts[i]` over its ranks. For each exchange the reduced gradient and
+    loss against the plain step over the two batches (`group_grads`),
+    ring bitwise the allgather, one launch of each kernel per conv; one
+    hybrid training step per exchange, the parameters the same bits on
+    every rank and in both exchanges."""
+    import torch
+    from x2gnn_tpu_torch.ops.blocked_attn import reset_launch_counts
+    from x2gnn_tpu_torch.parallel import (
+        make_ep_batch, make_hybrid_forward, make_hybrid_mesh,
+        make_hybrid_train_step, shard_hybrid_batch, stack_ep_batches)
+    from x2gnn_tpu_torch.parallel.data_parallel import reduced_gradients
+    from x2gnn_tpu_torch.parallel.ep_model import KV_EXCHANGES
+    from x2gnn_tpu_torch.train.loss import smooth_l1_loss
+    device = torch.device(device)
+    dp, ep = 2, world // 2
+    mesh = make_hybrid_mesh(dp, ep)
+    rows = hosts[:dp]
+    local = shard_hybrid_batch(stack_ep_batches(
+        [make_ep_batch(b, ep) for b in rows]), mesh, device)
+    model = seed0_model(mcfg, device)
+    leaves = list(model.parameters())
+    start = [p.detach().clone() for p in leaves]
+    L = mcfg.conv_layers if device.type == "cuda" else 0
+    want, ref = group_grads(model, rows, device)
+    got, rec = {}, {"plain_loss": want}
+    for mode in KV_EXCHANGES:
+        tag = f"DP x EP {dp} x {ep}, {mode}"
+        reset_launch_counts()
+        pred = make_hybrid_forward(mesh, mode)(model, local)
+        loss = smooth_l1_loss(pred, local.y, mask=local.graph_mask)
+        flat, gloss, total = reduced_gradients(loss, leaves,
+                                               local.graph_mask.sum())
+        sync(device)
+        counts = launch_counts()
+        got[mode] = (pred.detach(), flat, gloss)
+        rec[f"worst_{mode}"] = mc_agree(
+            f"{tag}: gradients",
+            lambda: held_grads(tag, split_grads(flat, model), ref))
+        mc_agree(f"{tag}: loss", lambda: loss_gate(tag, float(gloss), want))
+        mc_agree(f"{tag}: launches", lambda: launches_gate(tag, counts, L))
+        rec.update(loss=float(gloss), graphs=float(total) / ep,
+                   launches=counts)
+    mc_agree("DP x EP: exchanges", lambda: ring_gate(
+        "DP x EP", got["ring"], got["allgather"]))
+    digests = {}
+    for mode in KV_EXCHANGES:
+        restore_params(leaves, start)
+        opt, state = fresh_state(model, tcfg)
+        step = make_hybrid_train_step(model, opt, tcfg.ema_decay, mesh, mode,
+                                      tcfg.random_seed)
+        state, _, _ = step(state, local)
+        digests[mode] = params_digest(leaves)
+        same_bits(f"DP x EP step ({mode}): the parameters",
+                  gather_objects(digests[mode]))
+        if int(state.bad_steps):    # replicated: every rank raises
+            raise AssertionError(f"DP x EP step ({mode}) skipped")
+    restore_params(leaves, start)
+    same_bits("DP x EP step: ring against allgather",
+              list(digests.values()))
+    log(f"[multi-card (d)] DP x EP {dp} x {ep}: {rec['graphs']:.0f} real "
+        f"graphs, loss {rec['loss']!r} (plain {want!r}), gradients "
+        f"{rec['worst_ring']:.3e} of max|g|, ring = allgather bitwise, "
+        f"launches {rec['launches']}; one step per exchange, the parameters "
+        "the same bits on every rank and in both exchanges")
+    return rec
+
+
+def mc_turns(rank, world, device, mcfg, tcfg, hosts, reps):
+    """(f): ms per training step on this rank, median of `reps`, in turns
+    (each path, then each again in reverse order): the plain single-device
+    step on this rank's batch `hosts[rank]`, DP with that batch as its
+    member of the group `hosts[:world]`, EP on `hosts[0]` and DP x EP (2 x
+    world / 2) on `hosts[:2]`, each with both exchanges."""
+    import torch
+    from x2gnn_tpu_torch.parallel import (
+        make_dp_train_step, make_ep_batch, make_ep_train_step,
+        make_hybrid_mesh, make_hybrid_train_step, make_mesh, shard_ep_batch,
+        shard_hybrid_batch, stack_ep_batches)
+    from x2gnn_tpu_torch.train.loss import smooth_l1_loss
+    from x2gnn_tpu_torch.train.optim import apply_update_skip_nonfinite
+    device = torch.device(device)
+    model = seed0_model(mcfg, device)
+    leaves = list(model.parameters())
+    mesh = make_mesh()
+    hmesh = make_hybrid_mesh(2, world // 2)
+    mine = hosts[rank].to(device)
+    ep_local = shard_ep_batch(make_ep_batch(hosts[0], world), mesh, device)
+    hy_local = shard_hybrid_batch(stack_ep_batches(
+        [make_ep_batch(b, world // 2) for b in hosts[:2]]), hmesh, device)
+    opt, _ = fresh_state(model, tcfg)
+
+    def plain_step(state, batch):
+        loss = smooth_l1_loss(model(batch), batch.y, mask=batch.graph_mask)
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+        return apply_update_skip_nonfinite(state, loss.detach(), list(grads),
+                                           opt, tcfg.ema_decay)
+
+    ema = tcfg.ema_decay
+    paths = {
+        "plain": (plain_step, mine),
+        "dp": (make_dp_train_step(model, opt, ema, mesh), mine),
+        "ep allgather": (make_ep_train_step(model, opt, ema, mesh,
+                                            "allgather"), ep_local),
+        "ep ring": (make_ep_train_step(model, opt, ema, mesh, "ring"),
+                    ep_local),
+        "dp x ep allgather": (make_hybrid_train_step(
+            model, opt, ema, hmesh, "allgather"), hy_local),
+        "dp x ep ring": (make_hybrid_train_step(model, opt, ema, hmesh,
+                                                "ring"), hy_local)}
+    states = {name: fresh_state(model, tcfg)[1] for name in paths}
+    turns = {}
+    for name in list(paths) + list(paths)[::-1]:
+        step, batch = paths[name]
+
+        def one():
+            states[name] = step(states[name], batch)[0]
+
+        turns.setdefault(name, []).append(timed_ms(one, device, reps))
+    log(f"[multi-card (f)] rank {rank}: ms per step (median of {reps}), in "
+        "turns: " + "; ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}"
+                              for k, v in turns.items()))
+    return turns
+
+
+def mc_rank_phases(rank, world, device, note):
+    """What each rank runs in the mode: (a), then (b)-(d) and (f) on the
+    flagship at full width with the seed-0 weights, over phase 6's packed
+    batches (512 molecules, mean_atoms=18, seed=11: N=744, D=32, 8 tiers)
+    and, for EP, an AID-scale batch of 32 molecules (mean_atoms=64,
+    seed=3; D > 40). `note(phase)` records each phase."""
+    from x2gnn_tpu_torch.data.synthetic import synthetic_dataset
+    from x2gnn_tpu_torch.profile_training import flagship_training_configs
+    mcfg, tcfg = flagship_training_configs()
+    out = {}
+    note("(a) placement")
+    out["placement"] = mc_placement(rank, world, device)
+    note("planning the batches")
+    hosts = mc_packed_hosts(mcfg, tcfg, synthetic_dataset(
+        512, mean_atoms=18, seed=11), 10)
+    aid = whole_batch(synthetic_dataset(32, mean_atoms=64, seed=3))
+    if aid.in_edges.shape[1] <= 40:
+        raise AssertionError(f"the AID-scale batch {aid.in_edges.shape} is "
+                             "not D > 40")
+    note("(b) DP")
+    out["dp"] = mc_dp(rank, world, device, mcfg, tcfg, hosts)
+    note("(c) EP")
+    out["ep"] = mc_ep(rank, world, device, mcfg, tcfg,
+                      {"flagship": hosts[0], "AID": aid}, MC_REPS)
+    note("(d) DP x EP")
+    out["hybrid"] = mc_hybrid(rank, world, device, mcfg, tcfg, hosts)
+    note("(f) step times")
+    clocks = ["nvidia-smi", "--query-gpu=index,clocks.sm,power.draw,"
+              "temperature.gpu", "--format=csv,noheader"]
+    if rank == 0 and device.type == "cuda":
+        log(f"[multi-card (f)] before the turns: {_host_lines(clocks)}")
+    out["turns"] = mc_turns(rank, world, device, mcfg, tcfg, hosts, MC_REPS)
+    if rank == 0 and device.type == "cuda":
+        log(f"[multi-card (f)] after the turns: {_host_lines(clocks)}")
+    note("done")
+    return out
+
+
+def mc_rank_main(run_dir):
+    """One rank of the mode under torch.distributed.run: joins through the
+    port's initialize_distributed (NCCL on the card of LOCAL_RANK), runs
+    `mc_rank_phases`, and writes rank<r>.json and its log rank<r>.log
+    into `run_dir`."""
+    import torch.distributed as dist
+    from x2gnn_tpu_torch.parallel import initialize_distributed
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    # NCCL's account of its transports and topology, into the rank's
+    # standard output (`nccl_transports` reads it)
+    os.environ.setdefault("NCCL_DEBUG", "INFO")
+    os.environ.setdefault("NCCL_DEBUG_SUBSYS", "INIT,GRAPH")
+    with open(os.path.join(run_dir, f"rank{rank}.log"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        mc_note(run_dir, rank, "joining the process group")
+        device = initialize_distributed()
+        try:
+            out = mc_rank_phases(rank, world, device,
+                                 lambda p: mc_note(run_dir, rank, p))
+        finally:
+            dist.destroy_process_group()
+    with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def mc_kernel_rows(results):
+    """The kernels line's rows of each rank's first EP window of each
+    batch: the forward, the backward and its reduce, checked and timed on
+    that rank's card, with the launches of one EP step there."""
+    src = "x2gnn_tpu_torch/ops/csrc/"
+    rows = []
+    world = len(results)
+    for r, res in enumerate(results):
+        for name, rec in res["ep"].items():
+            if name == "steps":
+                continue
+            ichunk = rec["D"] > 40
+            note = (f"rank {r} of {world}: conv 0's window "
+                    f"{tuple(rec['window'])} of the {name} batch "
+                    f"(N={rec['N']}), {rec['valid_pairs']} valid pairs")
+            for kernel, file, line, key in (
+                    ("blocked_attn_fwd", "blocked_attn_fwd.cu",
+                     282 if ichunk else 166, "fwd"),
+                    ("blocked_attn_bwd", "blocked_attn_bwd.cu",
+                     346 if ichunk else 198, "bwd"),
+                    ("blocked_attn_bwd_reduce", "blocked_attn_bwd.cu", 271,
+                     "reduce")):
+                rows.append({"name": f"{kernel} (EP rank {r}/{world}, "
+                                     f"{name})",
+                             "route": "cuda", "source": src + file,
+                             "replaces": f"{PALLAS}:{line}",
+                             "launches": rec["launches"][key],
+                             "window": note, **rec[key]})
+    return rows
+
+
+def mc_report(results, card):
+    """The rank group's results, as lines: (a) every rank's card, (b) each
+    DP step, (c) the EP batches' rows, valid pairs and the row exchange's
+    ms per conv on every rank, (d), (f) the step times in turns. The
+    kernels' numbers are the kernels line's."""
+    world = len(results)
+    for r in results[0]["placement"]:
+        log(f"[{card}] (a) rank {r['rank']} on cuda:{r['index']} "
+            f"(LOCAL_RANK {r['local_rank']}), {r['uuid']}, {r['backend']}")
+    for i, step in enumerate(results[0]["dp"]["steps"]):
+        here = [res["dp"]["steps"][i]["graphs_here"] for res in results]
+        log(f"[{card}] (b) DP step {i + 1}: {step['graphs']} graphs, per "
+            f"rank {here}, loss {step['loss']!r} (plain "
+            f"{step['plain_loss']!r}), largest max|err|/max|g| "
+            f"{step['worst']:.3e}")
+    for name in results[0]["ep"]:
+        if name == "steps":
+            continue
+        recs = [res["ep"][name] for res in results]
+        log(f"[{card}] (c) EP {name}: rows per rank "
+            f"{[r['Nl'] for r in recs]}, D={recs[0]['D']}, valid pairs per "
+            f"rank {[r['valid_pairs'] for r in recs]}, predictions within "
+            f"{max(r['pred_err_ring'] for r in recs):.3e}, gradients "
+            f"{recs[0]['worst_ring']:.3e} of max|g|")
+        for mode in ("allgather", "ring"):
+            log(f"[{card}] (f) row exchange ({mode}) of the {name} batch, "
+                f"ms per conv on ranks 0-{world - 1}: "
+                + ", ".join(f"{r['exchange_ms'][mode]:.4f}" for r in recs))
+    hy = results[0]["hybrid"]
+    log(f"[{card}] (d) DP x EP: loss {hy['loss']!r} (plain "
+        f"{hy['plain_loss']!r}), gradients {hy['worst_ring']:.3e} of "
+        "max|g|")
+    for name in results[0]["turns"]:
+        per = [res["turns"][name] for res in results]
+        log(f"[{card}] (f) {name}: ms per step on ranks 0-{world - 1}, two "
+            "turns each: " + "; ".join(f"{a:.3f} / {b:.3f}"
+                                       for a, b in per))
+
+
+def plan_batches(config, n):
+    """The packed batches of the train split that the training CLI plans
+    for `--config config --synthetic n` (host arithmetic)."""
+    import numpy as np
+    from x2gnn_tpu_torch.config import load_configs
+    from x2gnn_tpu_torch.data.synthetic import synthetic_dataset
+    from x2gnn_tpu_torch.models.x2gnn import X2GNN
+    from x2gnn_tpu_torch.train.trainer import Trainer
+    mcfg, tcfg = load_configs(config)
+    graphs = synthetic_dataset(n, cutoff=mcfg.cutoff,
+                               edge_feat_dim=mcfg.edge_feat_dim)
+    targets = np.array([g.y[0] for g in graphs], np.float32)
+    t = Trainer(X2GNN(mcfg, device="cpu"), mcfg, tcfg, graphs, targets,
+                workdir="unused", device="cpu")
+    return graphs, t.val_idx, len(t._plan_of(t.train_idx))
+
+
+def cli_gate(tag, workdir, stdout, stderr, epochs, steps_per_epoch, mode):
+    """(e) a training CLI run over the ranks: `epochs` metrics records
+    numbered 1.. with finite losses, no skipped step and the step count
+    the plan gives; rank 0 alone wrote (one record and one train.log line
+    per epoch, one summary line, `mode` announced once). Returns the
+    records."""
+    import numpy as np
+    records = read_records(workdir)
+    with open(os.path.join(workdir, "train.log")) as f:
+        log_lines = f.read().splitlines()
+    summaries = [line for line in stdout.splitlines()
+                 if line.startswith("{")]
+    faults = []
+    if [r["epoch"] for r in records] != list(range(1, epochs + 1)):
+        faults.append(f"epochs {[r['epoch'] for r in records]}")
+    if len(log_lines) != epochs or len(summaries) != 1 \
+            or stderr.count(mode) != 1:
+        faults.append(f"{len(log_lines)} train.log lines, {len(summaries)} "
+                      f"summaries, {stderr.count(mode)} x {mode!r}: not rank "
+                      "0 alone")
+    for r in records:
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["val_mae"])) \
+                or r["bad_steps"] != 0:
+            faults.append(f"epoch {r['epoch']}: loss {r['loss']}, bad_steps "
+                          f"{r['bad_steps']}")
+        if r["step"] != r["epoch"] * steps_per_epoch:
+            faults.append(f"epoch {r['epoch']}: step {r['step']}, the plan "
+                          f"gives {r['epoch'] * steps_per_epoch}")
+    if faults:
+        raise AssertionError(f"{tag}: {faults}")
+    for r in records:
+        log(f"[{tag}] epoch {r['epoch']}: loss {r['loss']!r} val_mae "
+            f"{r['val_mae']!r} best {r['best_val_mae']!r} step {r['step']} "
+            f"{r['seconds']:.2f} s, {r['molecules_per_sec']:.1f} molecules/s")
+    return records
+
+
+def checkpoint_diffs(a, b):
+    """The leaves of two checkpoint files that differ, bitwise."""
+    from x2gnn_tpu_torch.train.checkpoint import restore_checkpoint
+    from x2gnn_tpu_torch.utils.determinism import tree_bitwise_diff
+
+    def kept(t):
+        if isinstance(t, dict):
+            return {k: kept(v) for k, v in t.items() if v is not None}
+        return t
+
+    return tree_bitwise_diff(kept(restore_checkpoint(a)),
+                             kept(restore_checkpoint(b)))
+
+
+def mc_entry_points(work, device, left, config=FLAGSHIP_ARGS, n=MC_CLI_N,
+                    extra=()):
+    """(e) the training CLI under torch.distributed.run on MC_RANKS ranks:
+    `--config config --synthetic n` for 2 epochs with --data-parallel; 1
+    epoch, then --resume its ckpt_last.pt to 2, which must give the 2-epoch
+    run's records (but the wall clock's) and its last checkpoint bitwise;
+    1 epoch with --edge-partition ring --dp-groups 2. Each run by
+    `cli_gate`; Predictor.from_run of the 2-epoch run on `device`
+    reproduces rank 0's logged best val MAE (its ckpt_best's) on the val
+    molecules within MC_MAE_RTOL. `left(limit)`: the seconds a launch may
+    take; `extra`: more CLI flags (--device cpu in a rehearsal)."""
+    import numpy as np
+    from x2gnn_tpu_torch.infer import Predictor
+    graphs, val_idx, n_batches = plan_batches(config, n)
+    dp_spe = math.ceil(n_batches / MC_RANKS)
+    hy_spe = math.ceil(n_batches / 2)
+    base = ["-m", "x2gnn_tpu_torch.train", "--config", config,
+            "--synthetic", str(n), *extra]
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    dp_mode = f"data parallel over {MC_RANKS} ranks ({backend})"
+    hy_mode = (f"hybrid DP x EP (2 groups x {MC_RANKS // 2}-way ring) over "
+               f"{MC_RANKS} ranks ({backend})")
+    straight, dp1, hy = (os.path.join(work, d)
+                         for d in ("dp2", "dp1", "dpxep1"))
+    runs = {}
+    for tag, wd, flags, epochs, spe, mode in (
+            ("dp 2 epochs", straight, ["--epochs", "2", "--data-parallel"],
+             2, dp_spe, dp_mode),
+            ("dp 1 epoch", dp1, ["--epochs", "1", "--data-parallel"], 1,
+             dp_spe, dp_mode),
+            ("dp 1 + 1 epochs", dp1, [
+                "--epochs", "2", "--data-parallel", "--resume",
+                os.path.join(dp1, "ckpt_last.pt")], 2, dp_spe, dp_mode),
+            ("dp x ep 1 epoch", hy, ["--epochs", "1", "--edge-partition",
+                                     "ring", "--dp-groups", "2"], 1, hy_spe,
+             hy_mode)):
+        stdout, stderr, secs = mc_launch(
+            mc_torchrun(base + flags + ["--workdir", wd]), f"(e) {tag}",
+            left(MC_CLI_S), os.path.join(work, tag.replace(" ", "_")))
+        log(f"[(e) {tag}] {MC_RANKS} ranks: {secs:.1f} s")
+        runs[tag] = cli_gate(f"(e) {tag}", wd, stdout, stderr, epochs, spe,
+                             mode)
+    straight = os.path.join(work, "dp2")
+    diffs = (resumed_record_diffs(runs["dp 2 epochs"],
+                                  runs["dp 1 + 1 epochs"], 1)
+             + checkpoint_diffs(os.path.join(straight, "ckpt_last.pt"),
+                                os.path.join(dp1, "ckpt_last.pt")))
+    log(f"[(e) resume] 1 + 1 epochs on {MC_RANKS} ranks against 2 straight: "
+        f"differences {json.dumps(diffs)}")
+    if diffs:
+        raise AssertionError("(e) resume: the resumed run differs")
+    pred = Predictor.from_run(straight, device=device)
+    val = [graphs[i] for i in val_idx]
+    got = pred.predict(val)
+    targets = np.array([g.y[0] for g in val], np.float64)
+    mae = float(np.abs(got - targets).mean())
+    want = runs["dp 2 epochs"][-1]["best_val_mae"]
+    rel = abs(mae - want) / abs(want)
+    log(f"[(e) from_run] the {MC_RANKS}-rank run's checkpoint on one "
+        f"device: val MAE {mae!r} over {len(val)} molecules against rank 0's "
+        f"logged {want!r}: relative {rel:.3e} (limit {MC_MAE_RTOL})")
+    if not rel <= MC_MAE_RTOL:
+        raise AssertionError("(e) from_run: the val MAE differs")
+    for wd in (straight, dp1, hy):       # the records and logs stay
+        for name in os.listdir(wd):
+            if name.endswith(".pt"):
+                os.remove(os.path.join(wd, name))
+    return {"steps_per_epoch": {"dp": dp_spe, "dp x ep": hy_spe},
+            "from_run_rel": rel}
+
+
+def mc_bench_scaling(work, left, extra=()):
+    """(f) `scripts.bench_scaling` on MC_RANKS ranks: its single, dp, ep
+    and hybrid lines."""
+    stdout, _, secs = mc_launch(
+        mc_torchrun(["-m", "x2gnn_tpu_torch.scripts.bench_scaling", *extra]),
+        "(f) bench_scaling", left(MC_BENCH_S),
+        os.path.join(work, "bench_scaling"))
+    lines = [json.loads(line) for line in stdout.splitlines()
+             if line.startswith("{")]
+    modes = [r["mode"] for r in lines]
+    if modes != ["single", "dp", "ep", "hybrid"] or any(
+            r["n_devices"] != (1 if r["mode"] == "single" else MC_RANKS)
+            for r in lines):
+        raise AssertionError(f"(f) bench_scaling: lines {lines}")
+    for r in lines:
+        log(f"[(f) bench_scaling] {json.dumps(r)}")
+    log(f"[(f) bench_scaling] {secs:.1f} s")
+    return lines
+
+
+def nvlink_summary():
+    """Per card, from `nvidia-smi nvlink --status`: its links and their
+    speeds (what the command printed, if it printed no link)."""
+    lines = _host_lines(["nvidia-smi", "nvlink", "--status"])
+    cards = []
+    for line in lines:
+        if line.startswith("GPU"):
+            cards.append((line.split(":")[0], []))
+        elif line.strip().startswith("Link") and cards:
+            cards[-1][1].append(line.split(":", 1)[1].strip())
+    if not cards:
+        return lines[:3]
+    return [f"{gpu}: {len(links)} links, {sorted(set(links))}"
+            for gpu, links in cards]
+
+
+def nccl_transports(path):
+    """NCCL's own account of how it connects the ranks (NCCL_DEBUG=INFO,
+    subsystems INIT and GRAPH, in the ranks' standard output): the
+    distinct lines naming a transport or a topology search's result."""
+    keys = ("via P2P", "via SHM", "via NET", "NVLS", "Pattern", "NVL",
+            "nvlink", "NCCL version")
+    seen = []
+    with open(path, errors="replace") as f:
+        for line in f:
+            if "NCCL INFO" not in line:
+                continue
+            text = line.split("NCCL INFO", 1)[1].strip()
+            if any(k in text for k in keys) and text not in seen:
+                seen.append(text)
+    return seen[:24]
+
+
+class _Tee:
+    """A text stream that writes to each of `streams`."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for stream in self.streams:
+            stream.write(text)
+
+    def flush(self):
+        for stream in self.streams:
+            stream.flush()
+
+
+def multi_card(deadline_s=MC_DEADLINE_S):
+    """The --multi-card mode on MC_RANKS cards of this host: the kernels
+    built once; the cards and their topology logged; (a)-(d) and (f)'s
+    step times in one torch.distributed.run rank group
+    (`mc_rank_phases`); (e) the training CLI and (f) bench_scaling under
+    torch.distributed.run. Each launch has a deadline of its own within
+    `deadline_s`. What it prints also goes to MC_OUT/mode.log, beside
+    each rank's log and results and the kernel rows in full
+    (kernels.json). Returns the kernels line's rows."""
+    t_start = time.perf_counter()
+    shutil.rmtree(MC_OUT, ignore_errors=True)
+    os.makedirs(MC_OUT)
+    with open(os.path.join(MC_OUT, "mode.log"), "w") as f, \
+            contextlib.redirect_stdout(_Tee(sys.stdout, f)):
+        rows = _multi_card(t_start + deadline_s)
+        log(f"[multi-card] done in {time.perf_counter() - t_start:.1f} s")
+    with open(os.path.join(MC_OUT, "kernels.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    keep = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "window")
+    return [{k: row[k] for k in keep} for row in rows]
+
+
+def _multi_card(deadline):
+    import torch
+    from x2gnn_tpu_torch.ops import _build
+
+    def left(limit):
+        return min(limit, deadline - time.perf_counter())
+
+    card = _host_lines(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"])[0]
+    print(card, flush=True)
+    for line in _host_lines(["nvidia-smi", "--query-gpu=index,name,"
+                             "power.limit,uuid", "--format=csv,noheader"]):
+        log(f"[multi-card] {line}")
+    for line in _host_lines(["nvidia-smi", "topo", "-m"]):
+        log(f"[multi-card] topo: {line}")
+    for line in nvlink_summary():
+        log(f"[multi-card] nvlink: {line}")
+    n = torch.cuda.device_count()
+    peers = [[int(i == j or torch.cuda.can_device_access_peer(i, j))
+              for j in range(n)] for i in range(n)]
+    log(f"[multi-card] peer access (torch.cuda.can_device_access_peer): "
+        f"{peers}")
+    log(f"[multi-card] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"nccl {torch.cuda.nccl.version()} python "
+        f"{sys.version.split()[0]}; {torch.cuda.device_count()} cards, "
+        f"{len(os.sched_getaffinity(0))} host cores")
+    for name, built in _build.build_all().items():
+        log(f"[multi-card] kernel {name}: {built.seconds:.2f} s nvcc, once, "
+            "before any rank starts")
+    ok = False
+    try:
+        _, _, secs = mc_launch(
+            mc_torchrun([os.path.join(REPO, "chip_smoke.py"),
+                         "--multi-card-rank", MC_OUT]),
+            "the rank group of (a)-(d), (f)", left(MC_RANKS_S),
+            os.path.join(MC_OUT, "ranks"), run_dir=MC_OUT)
+        ok = True
+    finally:
+        # rank 0's summary lines; every rank's end after a failure
+        for r in range(1 if ok else MC_RANKS):
+            path = os.path.join(MC_OUT, f"rank{r}.log")
+            if not os.path.exists(path):
+                continue
+            with open(path) as f:
+                lines = f.read().splitlines()
+            shown = ([line for line in lines
+                      if line.startswith("[multi-card")] if ok
+                     else lines[-40:])
+            for line in shown:
+                log(f"[rank {r}] {line}")
+    log(f"[multi-card] the rank group: {secs:.1f} s; each rank's log in "
+        f"{os.path.relpath(MC_OUT, REPO)}/")
+    for line in nccl_transports(os.path.join(MC_OUT, "ranks.out")):
+        log(f"[multi-card] NCCL: {line}")
+    results = []
+    for r in range(MC_RANKS):
+        with open(os.path.join(MC_OUT, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    mc_report(results, card)
+    work = os.path.join(MC_OUT, "cli")
+    os.makedirs(work)
+    mc_entry_points(work, torch.device("cuda", 0), left)
+    mc_bench_scaling(MC_OUT, left)
+    return mc_kernel_rows(results)
+
+
 def parse_args(argv=None):
     import argparse
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4544,6 +5720,12 @@ def parse_args(argv=None):
     p.add_argument("--n", type=int, default=A12_N,
                    help="--a12-full: molecules to build; any other count "
                         "than the A12 set's tries the mechanics only")
+    p.add_argument("--multi-card", action="store_true",
+                   help=f"run only the parallel paths on {MC_RANKS} cards "
+                        "of this host over NCCL")
+    p.add_argument("--multi-card-rank", metavar="DIR", default=None,
+                   help="(the --multi-card mode's rank entry point under "
+                        "torch.distributed.run; writes into DIR)")
     return p.parse_args(argv)
 
 
@@ -4557,6 +5739,19 @@ def ok_line():
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
+    if args.multi_card_rank:
+        mc_rank_main(args.multi_card_rank)
+        return 0
+    if args.multi_card:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n < MC_RANKS:
+            print(f"chip_smoke --multi-card: {n} CUDA devices; the mode "
+                  f"runs on {MC_RANKS} cards of one host and nowhere else",
+                  file=sys.stderr)
+            return 1
+        print(json.dumps({"kernels": multi_card()}), flush=True)
+        print(ok_line(), flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the smoke test runs only on the "
               "card", file=sys.stderr)

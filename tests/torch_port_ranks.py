@@ -391,3 +391,49 @@ def hybrid_cases(rank, world, dp, cases, tcfg_kw, steps, std):
         res["steps"] = (losses, final)
         out[case["name"]] = res
     return out
+
+
+def spoiled(rank, world, spoil, fn, args):
+    """fn(rank, world, *args), one of chip_smoke.py's --multi-card rank
+    functions, with one input spoiled on one rank: "ulp" rank 1's
+    parameters one ulp off where their digest is taken, "grad" one
+    gradient of rank 2's plain reference off by 1e-2 of its largest
+    magnitude, "ring" rank 0's ring exchange scaled by 1 + 2^-20. Returns
+    the message of the AssertionError that fn raised, or None."""
+    import chip_smoke
+    from x2gnn_tpu_torch.parallel import ep_model
+    patched = []
+
+    def patch(module, name, fn):
+        patched.append((module, name, getattr(module, name)))
+        setattr(module, name, fn)
+
+    digest, group_grads = chip_smoke.params_digest, chip_smoke.group_grads
+    gather_rows = ep_model._gather_rows
+    if spoil == "ulp" and rank == 1:
+        def off_digest(leaves):
+            first = leaves[0].detach().clone().reshape(-1)
+            first[0] = torch.nextafter(first[0], torch.tensor(np.inf))
+            return digest([first] + list(leaves[1:]))
+        patch(chip_smoke, "params_digest", off_digest)
+    if spoil == "grad" and rank == 2:
+        def off_grads(model, group, device):
+            loss, ref = group_grads(model, group, device)
+            name = next(n for n in ref if not n.endswith("lin_key.bias"))
+            g = ref[name].clone()
+            g.view(-1)[0] += 1e-2 * float(g.abs().max())
+            return loss, {**ref, name: g}
+        patch(chip_smoke, "group_grads", off_grads)
+    if spoil == "ring" and rank == 0:
+        def off_rows(x, ids, take, axis):
+            out = gather_rows(x, ids, take, axis)
+            return out * (1 + 2 ** -20) if axis.mode == "ring" else out
+        patch(ep_model, "_gather_rows", off_rows)
+    try:
+        fn(rank, world, *args)
+        return None
+    except AssertionError as e:
+        return str(e)
+    finally:
+        for module, name, value in patched:
+            setattr(module, name, value)
