@@ -127,9 +127,12 @@ Phases, each of which raises on failure (exit code != 0):
      and without dropout.
  11. the host data pipeline and the profiling hooks, at the flagship's
      full width: (a) the integral engine built by g++ from the
-     repository's source, 256 labelled molecules (`python -m
+     repository's source through its CLI (`python -m
+     x2gnn_tpu_torch.data.integrals.build`, its printed path the one the
+     engine loads; the builder after it runs no g++), 128 labelled
+     molecules (`python -m
      x2gnn_tpu_torch.data.make_synthetic --basis 6311 --gap-label
-     --mean-atoms 18`), the 4 smallest held against the numpy engine (S
+     --mean-atoms 18`), the 2 smallest held against the numpy engine (S
      rtol 1e-10, H rtol 1e-8), ms per molecule of both engines; (b) their
      float64 geometry and labels as an xyz file, `python -m
      x2gnn_tpu_torch.train --data ... --backend native6311 --pack-mixed
@@ -143,7 +146,7 @@ Phases, each of which raises on failure (exit code != 0):
      over 5 epochs, device busy, idle share) in turns; (d)
      Predictor.from_run of (b)'s run: predict_xyz of 64 molecules,
      featurized again in this process, bitwise predict on load_dataset's
-     graphs; (e) the CLI on 128 molecules of (b)'s cache with
+     graphs; (e) the CLI on 64 molecules of (b)'s cache with
      --cache-batches host, --profile-dir (a trace file) and
      --check-determinism (OK).
  12. the rest of the reference's model options at the flagship's width:
@@ -197,9 +200,9 @@ Phases, each of which raises on failure (exit code != 0):
      to the fixture's JAX curve (`curve_gate`), occupancy_pairs bitwise;
      the kernels checked and timed on every tier of its first batch.
  16. the evaluation and measurement scripts (`x2gnn_tpu_torch/scripts/`),
-     each through its `main`: (a) 24 AID-scale molecules (48-80 atoms)
+     each through its `main`: (a) 18 AID-scale molecules (48-80 atoms)
      labelled with their independent-particle energy in kcal/mol, written
-     as an AID-format xyz, `featurize_aid --chunk 8` (3 parts), `aid_cv`
+     as an AID-format xyz, `featurize_aid --chunk 6` (3 parts), `aid_cv`
      3 folds x 3 epochs at batch 4 (launches held to conv_layers x the
      windows of every step, evaluation and fold-out prediction; a window
      with more than 40 key slots among them), fold 0 again in a fresh
@@ -213,7 +216,7 @@ Phases, each of which raises on failure (exit code != 0):
      (d) `debug_ep_cost` at world size 1; (e) `bench_scaling` on one card
      (its single line); (f) `pack_ab --report-only` over phase 6a's packed
      and 6b's fixed-budget runs; (g) `pipeline_demo`: 2 streamed epochs of
-     4,096 geometry-only molecules.
+     2,048 geometry-only molecules.
 Each row of the kernels line takes its launches from a path that launches
 its shape, with the counts zeroed just before that path.
 The line before the last is a JSON object {"kernels": [...]}; the last
@@ -234,6 +237,21 @@ epoch and evaluation times, molecules/s and peak memory are printed
 beside the card's name and power limit. The ok line ends it only if every
 check passed, and only for the A12 set's 50,000 molecules: another N
 tries the mechanics without the JAX checks.
+
+    python3 chip_smoke.py --gap-full [--deadline-s S] [--n N]
+
+runs the gap recipe at full scale in the same way, and nothing else
+(`gap_full`; both modes are `full_recipe` of their recipe's record): the
+same set, its standardization (no atomref) held to runs/gap_r5_50k's, the
+constant predictors' val and test MAE printed (the train split's mean and
+median label; both modes print them), `--config
+runs/gap_r5_50k/args.json --standardize --pack-mixed --cache-batches on
+--feat-dtype float16` trained until the deadline, the last epoch held to
+runs/gap_r5_50k and runs/gap_molwise_r4 by `gap_gate`, the timings, and
+the <drop> forward, backward and reduce on every tier of the plan's
+heaviest batch checked against their plain versions and timed, with one
+step's launches counted (an epoch's is logged as the plan's arithmetic,
+not counted); its kernels line holds those rows.
 
     python3 chip_smoke.py --multi-card
 
@@ -605,7 +623,7 @@ def check_bwd_kernel(tag, args, cfg, seed, timed, out):
     import torch
     from x2gnn_tpu_torch.ops.blocked_attn import (
         blocked_attention_bwd, blocked_attention_bwd_partials,
-        blocked_attention_bwd_plain, reduce_partials)
+        blocked_attention_bwd_plain)
 
     H, K = cfg.heads, cfg.rbf_dim
     g = torch.from_numpy(np.random.default_rng(seed).normal(
@@ -647,13 +665,7 @@ def check_bwd_kernel(tag, args, cfg, seed, timed, out):
     # the reduce on the kernel's own partials
     partial = blocked_attention_bwd_partials(*args, g, heads=H,
                                              num_radial=K, out=out)[-1]
-    red = reduce_partials(partial)
-    red_err = float((red.double() - partial.double().sum(0)).abs().max())
-    tol = 1e-5 * float(partial.abs().sum(0).max())
-    log(f"[reduce {tag}] {tuple(partial.shape)} partials: max_abs_err="
-        f"{red_err:.3e} against a float64 sum (limit {tol:.3e})")
-    if red_err > tol or not torch.equal(red, reduce_partials(partial)):
-        raise AssertionError(f"reduce {tag}: wrong or not reproducible")
+    red, red_err = check_reduce(tag, partial)
     # device time back to back (the tier windows are shorter than the
     # host's time to allocate the gradients and launch)
     ms = backlog_ms(lambda: blocked_attention_bwd_partials(
@@ -685,8 +697,32 @@ def check_bwd_kernel(tag, args, cfg, seed, timed, out):
            "bound_ms": bound_ms, "bound_by": bound_by,
            "bound_ms_with_saved_out": with_out_ms, "max_abs_err": max_abs,
            "library_ms": None, "warps_per_sm": occ["warps_per_sm"]}
-    # reduce and partial.sum(0) on the same partials, in turns, timed on
-    # the device back to back (both are shorter than a launch's host time)
+    return bwd, time_reduce(tag, partial, red, red_err)
+
+
+def check_reduce(tag, partial):
+    """The reduce kernel on a backward's `partial` against a float64 sum
+    (within 1e-5 x its largest column sum of |partial|) and bitwise on a
+    rerun; returns (its output, max abs error)."""
+    import torch
+    from x2gnn_tpu_torch.ops.blocked_attn import reduce_partials
+
+    red = reduce_partials(partial)
+    red_err = float((red.double() - partial.double().sum(0)).abs().max())
+    tol = 1e-5 * float(partial.abs().sum(0).max())
+    log(f"[reduce {tag}] {tuple(partial.shape)} partials: max_abs_err="
+        f"{red_err:.3e} against a float64 sum (limit {tol:.3e})")
+    if red_err > tol or not torch.equal(red, reduce_partials(partial)):
+        raise AssertionError(f"reduce {tag}: wrong or not reproducible")
+    return red, red_err
+
+
+def time_reduce(tag, partial, red, red_err):
+    """The reduce kernel and partial.sum(0) on the same partials, in
+    turns, timed on the device back to back (both are shorter than a
+    launch's host time); returns the reduce's record."""
+    from x2gnn_tpu_torch.ops.blocked_attn import reduce_partials
+
     r_ms = backlog_ms(lambda: reduce_partials(partial))
     r_plain = backlog_ms(lambda: partial.sum(0))
     r_ms2 = backlog_ms(lambda: reduce_partials(partial))
@@ -700,9 +736,8 @@ def check_bwd_kernel(tag, args, cfg, seed, timed, out):
                else "slower than")
     log(f"[reduce {tag}] the kernel is {verdict} partial.sum(0) in both "
         "turns")
-    reduce = {"ms": r_ms, "plain_ms": r_plain, "bound_ms": r_bound,
-              "bound_by": r_by, "max_abs_err": red_err, "library_ms": r_plain}
-    return bwd, reduce
+    return {"ms": r_ms, "plain_ms": r_plain, "bound_ms": r_bound,
+            "bound_by": r_by, "max_abs_err": red_err, "library_ms": r_plain}
 
 
 def check_window(tag, args, cfg, seed, fwd_timed=False, bwd_timed=False):
@@ -1053,10 +1088,11 @@ def segment_sums(fn):
             m.segment_sum = f
 
 
-def busy_ms(trainer, state, batches, steps: int = 5):
+def busy_ms(trainer, state, batches, steps: int = 5, check=False):
     """(device busy ms per step, wall ms per step, state) of `steps`
     training steps on cached batches traced by torch.profiler, after 3
-    steps of warm-up."""
+    steps of warm-up. With `check`, device_rows' sums (the raw events) are
+    held to key_averages' on the same trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from x2gnn_tpu_torch.profile_serving import device_rows
@@ -1074,8 +1110,30 @@ def busy_ms(trainer, state, batches, steps: int = 5):
                                           step + 3 + i)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(r[0] for r in device_rows(prof)) / 1e3
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    if check:
+        check_device_rows(prof, rows)
     return busy / steps, wall / steps, state
+
+
+def check_device_rows(prof, rows):
+    """device_rows' kernels and copies (read from the raw events) against
+    key_averages' on the same trace: the same count and device time, within
+    1e-6 relative (the two sum in another order)."""
+    from torch.autograd import DeviceType
+    t0 = time.perf_counter()
+    ref = [(e.self_device_time_total, e.count) for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    parse_s = time.perf_counter() - t0
+    got = (sum(r[0] for r in rows), sum(r[1] for r in rows))
+    want = (sum(r[0] for r in ref), sum(r[1] for r in ref))
+    log(f"[device_rows] {got[1]} device events, {got[0]:.3f} us from the raw "
+        f"events; key_averages {want[1]}, {want[0]:.3f} us (its parse "
+        f"{parse_s:.2f} s)")
+    if got[1] != want[1] or abs(got[0] - want[0]) > 1e-6 * want[0]:
+        raise AssertionError(f"device_rows {got} against key_averages {want}")
 
 
 def read_records(workdir):
@@ -1198,11 +1256,12 @@ def check_step_determinism(mcfg, tcfg, graphs, qm9, device, card):
 
     batches = trainer.batches(trainer.train_idx)
     state = trainer.init_state()
-    for name, fn in (("select", None), ("index_add_", index_add_segment_sum),
-                     ("index_add_", index_add_segment_sum),
-                     ("select", None)):
+    for turn, (name, fn) in enumerate((
+            ("select", None), ("index_add_", index_add_segment_sum),
+            ("index_add_", index_add_segment_sum), ("select", None))):
         if fn is None:
-            busy, wall, state = busy_ms(trainer, state, batches)
+            busy, wall, state = busy_ms(trainer, state, batches,
+                                        check=turn == 0)
         else:
             with segment_sums(fn):
                 busy, wall, state = busy_ms(trainer, state, batches)
@@ -2331,9 +2390,9 @@ def bf16_recipe(card, device, train_graphs, aid, qm9, packed, pstate, pred,
 
 # ---- phase 11: the host data pipeline and the profiling hooks ----
 
-PHASE11_SEED, PHASE11_MOLECULES, PHASE11_MEAN_ATOMS = 7, 256, 18
-# untraced epochs per turn of 11c's step times: one epoch is 6 steps, and
-# the host's clock spreads a 6-step mean by more than the modes differ
+PHASE11_SEED, PHASE11_MOLECULES, PHASE11_MEAN_ATOMS = 7, 128, 18
+# untraced epochs per turn of 11c's step times: one epoch is 4 steps, and
+# the host's clock spreads a 4-step mean by more than the modes differ
 WALL_EPOCHS = 5
 
 
@@ -2353,8 +2412,10 @@ def _numpy_integrals(index):
 
 
 def build_phase11_set(work):
-    """11a: the integral engine built from the repository's source, the
-    builder's labelled molecules (a subprocess), 4 of them held against
+    """11a: the integral engine built from the repository's source by its
+    CLI (`python -m x2gnn_tpu_torch.data.integrals.build`, a subprocess:
+    the printed path is the one the engine loads), the builder's labelled
+    molecules (a subprocess that then runs no g++ of its own), 2 held against
     the numpy engine (S rtol 1e-10, H rtol 1e-8, as
     tests/test_torch_port_featurize.py holds them), and the xyz file of
     their float64 geometry and labels. Returns (graphs, xyz path, ms per
@@ -2369,17 +2430,30 @@ def build_phase11_set(work):
     from x2gnn_tpu_torch.data.synthetic import synthetic_geometry
 
     cores = os.cpu_count()
-    built = engine.build()
-    log(f"[data] integral engine: {built.seconds:.2f} s g++ -> {built.path}"
-        f" (0.00: built before on this host); {cores} host cores")
+    # the engine built once by its CLI, then the builder's workers load it
     t0 = time.perf_counter()
-    run_cli(["x2gnn_tpu_torch.data.make_synthetic", "--n",
-             str(PHASE11_MOLECULES), "--name", "phase11", "--seed",
-             str(PHASE11_SEED), "--mean-atoms", str(PHASE11_MEAN_ATOMS),
-             "--chunk", str(PHASE11_MOLECULES), "--cache-dir",
-             os.path.join(work, "built"), "--workers", str(cores),
-             "--basis", "6311", "--gap-label"], "data builder")
+    proc = run_cli(["x2gnn_tpu_torch.data.integrals.build"], "engine build")
+    path = proc.stdout.strip()
+    compiled = bool(proc.stderr.strip())     # the g++ command, if it ran
+    log(f"[data] integral engine: `python -m x2gnn_tpu_torch.data.integrals"
+        f".build` {time.perf_counter() - t0:.2f} s -> {path} ("
+        f"{'compiled by g++' if compiled else 'built before on this host'})"
+        f"; {cores} host cores")
+    if path != engine.library_path():
+        raise AssertionError(f"engine build: printed {path!r}, the engine "
+                             f"loads {engine.library_path()!r}")
+    t0 = time.perf_counter()
+    builder = run_cli([
+        "x2gnn_tpu_torch.data.make_synthetic", "--n",
+        str(PHASE11_MOLECULES), "--name", "phase11", "--seed",
+        str(PHASE11_SEED), "--mean-atoms", str(PHASE11_MEAN_ATOMS),
+        "--chunk", str(PHASE11_MOLECULES), "--cache-dir",
+        os.path.join(work, "built"), "--workers", str(cores), "--basis",
+        "6311", "--gap-label"], "data builder")
     builder_ms = (time.perf_counter() - t0) * 1e3 / PHASE11_MOLECULES
+    if f"integral engine {path} (0.00 s g++)" not in builder.stderr:
+        raise AssertionError("data builder: it ran g++ of its own after the "
+                             "engine's build CLI")
     graphs = load_graph_cache(os.path.join(work, "built", "phase11.npz"))
     sizes = [g.num_atoms for g in graphs]
     log(f"[data] builder: {len(graphs)} molecules of {min(sizes)}-"
@@ -2392,7 +2466,7 @@ def build_phase11_set(work):
             and g.edge_feat.any() for g in graphs):
         raise AssertionError("data builder: bad molecules")
     # the C++ engine in this process, one molecule at a time on all cores;
-    # then the numpy engine on the 4 smallest, 4 spawned processes at once
+    # then the numpy engine on the 2 smallest, 2 spawned processes at once
     basis = get_basis("6-311+g(3df,2p)")
     t0 = time.perf_counter()
     for i in range(16):
@@ -2400,7 +2474,7 @@ def build_phase11_set(work):
                                           mean_atoms=PHASE11_MEAN_ATOMS)
         engine.one_electron_matrices(numbers, pos, basis)
     cpp_ms = (time.perf_counter() - t0) * 1e3 / 16
-    smallest = sorted(range(len(graphs)), key=lambda i: sizes[i])[:4]
+    smallest = sorted(range(len(graphs)), key=lambda i: sizes[i])[:2]
     cpp, cpp_small_ms = {}, []
     for i in smallest:
         numbers, pos = synthetic_geometry(i, seed=PHASE11_SEED,
@@ -2408,7 +2482,7 @@ def build_phase11_set(work):
         t0 = time.perf_counter()
         cpp[i] = engine.one_electron_matrices(numbers, pos, basis)
         cpp_small_ms.append((time.perf_counter() - t0) * 1e3)
-    with multiprocessing.get_context("spawn").Pool(4) as pool:
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
         numpy_results = pool.map(_numpy_integrals, smallest)
     worst = [0.0, 0.0]
     for i, ((s, h, ao), _) in zip(smallest, numpy_results):
@@ -2424,7 +2498,7 @@ def build_phase11_set(work):
         f"OpenMP on {cores} cores); on molecules {smallest} of "
         f"{[sizes[i] for i in smallest]} atoms: numpy engine "
         f"{', '.join(f'{ms:.1f}' for ms in numpy_ms)} ms (one process "
-        f"each, 4 at once), C++ "
+        f"each, 2 at once), C++ "
         f"{', '.join(f'{ms:.3f}' for ms in cpp_small_ms)} ms; C++ vs numpy "
         f"max |dS| {worst[0]:.3e}, max |dH| {worst[1]:.3e}")
     mols = []
@@ -2655,12 +2729,12 @@ def data_pipeline(card, device):
             f"(featurizing included), {serve_launches} forward launches, "
             "bitwise predict(load_dataset graphs)")
         # 11e: --profile-dir traces epoch 2 and --check-determinism runs
-        # first, on 128 molecules of (b)'s cache
+        # first, on 64 molecules of (b)'s cache
         prof_dir = os.path.join(work, "profile")
         proc = run_cli(["x2gnn_tpu_torch.train", "--config", FLAGSHIP_ARGS,
                         "--data-npz",
                         os.path.join(cache, "phase11_native6311_c5.npz"),
-                        "--limit", "128", "--pack-mixed", "--epochs", "2",
+                        "--limit", "64", "--pack-mixed", "--epochs", "2",
                         "--cache-batches", "host", "--check-determinism",
                         "--profile-dir", prof_dir, "--workdir",
                         os.path.join(work, "run_profiled")],
@@ -3633,42 +3707,51 @@ def check_curve_set(graphs, fixture):
                              f"{bad[:5]}")
 
 
-def curve_labels(graphs, tcfg):
-    """The training CLI's --atomref-fit --standardize (train/__main__.py,
-    train.py:257-270) with the port's functions: targets minus the
-    atomref fit on the train split, standardized. Returns (targets, std,
-    atomref table with str keys, mu, sigma)."""
+def curve_labels(graphs, tcfg, atomref=True):
+    """The training CLI's [--atomref-fit] --standardize
+    (train/__main__.py, train.py:257-286) with the port's functions:
+    targets, minus the atomref fit on the train split with `atomref`,
+    standardized (without it in the targets' float32, as the CLI does).
+    Returns (targets, std, atomref table with str keys or None, mu,
+    sigma)."""
     import numpy as np
     from x2gnn_tpu_torch.data.dataset import prepare_targets
     from x2gnn_tpu_torch.data.molecule import fit_linear_atomref
     from x2gnn_tpu_torch.train.trainer import make_split, resolve_division
 
     targets = prepare_targets(graphs, tcfg.target)
-    n = len(graphs)
-    fit_idx, _, _ = make_split(n, tcfg.random_seed,
-                               resolve_division(n, tcfg.division))
-    pred, table = fit_linear_atomref([g.numbers for g in graphs], targets,
-                                     fit_idx)
-    targets = np.asarray(targets, np.float64) - pred
+    table = None
+    if atomref:
+        n = len(graphs)
+        fit_idx, _, _ = make_split(n, tcfg.random_seed,
+                                   resolve_division(n, tcfg.division))
+        pred, table = fit_linear_atomref([g.numbers for g in graphs],
+                                         targets, fit_idx)
+        targets = np.asarray(targets, np.float64) - pred
+        table = {str(k): v for k, v in table.items()}
     mu, sigma = float(np.mean(targets)), float(np.std(targets) + 1e-12)
     targets = ((targets - mu) / sigma).astype(np.float32)
-    return targets, sigma, {str(k): v for k, v in table.items()}, mu, sigma
+    return targets, sigma, table, mu, sigma
 
 
 def check_curve_stats(atomref, mu, sigma, fixture, tag="curve",
                       source="the fixture's"):
-    """The atomref table and the standardization within STATS_RTOL of the
-    fixture's (a dict with its "atomref" and "standardization")."""
-    got = {**{f"atomref {k}": v for k, v in atomref.items()},
+    """The atomref table (None for a recipe without one, whose fixture
+    then has no "atomref") and the standardization within STATS_RTOL of
+    the fixture's (a dict with its "standardization" and "atomref")."""
+    got = {**{f"atomref {k}": v for k, v in (atomref or {}).items()},
            "mu": mu, "sigma": sigma}
-    want = {**{f"atomref {k}": v for k, v in fixture["atomref"].items()},
+    want = {**{f"atomref {k}": v
+               for k, v in fixture.get("atomref", {}).items()},
             **fixture["standardization"]}
     if got.keys() != want.keys():
         raise AssertionError(f"{tag}: atomref elements {sorted(got)} vs "
                              f"{sorted(want)}")
     rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
     worst = max(rel, key=rel.get)
-    log(f"[{tag}] atomref ({len(atomref)} terms) and standardization (mu "
+    what = ("standardization" if atomref is None else
+            f"atomref ({len(atomref)} terms) and standardization")
+    log(f"[{tag}] {what} (mu "
         f"{mu!r}, sigma {sigma!r}) within {rel[worst]:.3e} relative of "
         f"{source} (worst {worst}; gate {STATS_RTOL})")
     if rel[worst] > STATS_RTOL:
@@ -3863,12 +3946,12 @@ def curve_kernel_rows(batch, mcfg, shapes, counts):
 
 # AID-scale molecules (the real AID set's 451 have up to 77 atoms): sizes
 # around 64, so that a batch's top degree tier has more than 40 slots
-AID_SEED, AID_MOLECULES, AID_CHUNK = 16, 24, 8
+AID_SEED, AID_MOLECULES, AID_CHUNK = 16, 18, 6
 AID_FOLDS, AID_EPOCHS, AID_BATCH = 3, 3, 4
 # the recipe's warm-up (300 of 1,500 steps: 5 folds x 150 epochs x ~10
-# steps) scaled to the cut's 3 epochs of 4 steps
-AID_WARMUP = 3
-GEO_MOLECULES = 4096
+# steps) scaled to the cut's 3 epochs of 2 steps (8 train molecules a fold)
+AID_WARMUP = 1
+GEO_MOLECULES = 2048
 
 
 def aid_molecule(index):
@@ -4181,10 +4264,10 @@ def measurement_scripts(card, device, serving_rate, packed_records,
     return rows
 
 
-# ---- --a12-full: A12 at full scale, the flagship recipe on the whole set ----
+# ---- --a12-full, --gap-full: a recipe of the repo on the whole A12 set ----
 
-# the two JAX runs of the recipe on the A12 set (the same args.json but
-# max_epoch, the same atomref.json and standardization.json)
+# the two JAX runs of the flagship recipe on the A12 set (the same
+# args.json but max_epoch, the same atomref.json and standardization.json)
 A12_RUNS = ("flagship_r5_regression", "flagship_r4_mixed")
 A12_N, A12_NAME = 50000, "synthq50k_6311"
 # the mode's gates (PERF.md §6, fixed before its first card run): at least
@@ -4200,7 +4283,44 @@ A12_N, A12_NAME = 50000, "synthq50k_6311"
 A12_MIN_EPOCHS = 5
 A12_EARLY_EPOCHS, A12_EARLY_FACTOR = 2, 1.5
 A12_FACTOR = 1.25
-# the mode stops the trainer when its next epoch would end past this many
+# the two JAX runs of the gap recipe on the same set: r5 (dropout 0.1,
+# patience 6, 87 epochs) and r4 (dropout 0, patience 3, 60 epochs; its
+# occupancy_pairs are an earlier planner's, so the port is held to r5's)
+GAP_RUNS = ("gap_r5_50k", "gap_molwise_r4")
+# the gap mode's gates (PERF.md §6): the records' bookkeeping as A12's,
+# from GAP_MIN_EPOCHS epochs; at the last epoch reached E, the port's
+# best_val_mae keeps at least GAP_SHARE of the worse JAX run's gain over
+# the better constant predictor (the train split's mean or median label,
+# whichever has the smaller val MAE), and lies at most GAP_BAND_FACTOR x
+# the runs' spread above that worse run; the best epoch's test_mae the
+# same against the test split's constants and the runs' test_mae.
+# The share: the JAX curves are nearly flat (best val 2.0017 -> 1.9721 by
+# epoch 10), and the median constant is their best rival: its val MAE on
+# the set is 2.0270, 0.0549 above the worse run's best from epoch 9 to
+# 23, its test MAE 2.0924, 0.0392 above the worse run's test. A model
+# that learns nothing drifts towards such a constant (smooth_l1 pulls it
+# between the mean and the median), so the share is taken from the
+# better constant, and a curve at it keeps none of the gain. The worse
+# of the two JAX runs keeps 0.73-0.92 of the better one's val gain over
+# it at every cut from 10 epochs (0.76-0.89 of its test gain, bar r5's
+# best epochs 24-26, whose test MAE lies 0.0085 under the constant); half
+# leaves room for what the port changes beyond what the runs differ in
+# (initial weights, the mask stream: JAX's threefry against torch's
+# Philox, ROADMAP §C) and holds the port
+# 0.027 eV (val) and 0.020 eV (test) under the median constant at E =
+# 10-23. The band: the spread is the runs' largest per-epoch |r5 - r4| of
+# val_mae over epochs 1-E (0.0157 at E = 10, 0.0283 at E = 11-21), the
+# noise of one evaluation of 3,000 molecules under another mask stream; a
+# best val MAE is the least of such evaluations and a test_mae one of
+# them, so they move by no more; the factor 2 is for the initial weights
+# and the mask stream again. Where that band is wider than the share's
+# limit (at every cut of the JAX runs: the per-epoch noise is as large
+# as the gain), the share is the check that tells learning from a
+# constant.
+GAP_MIN_EPOCHS = 10
+GAP_SHARE = 0.5
+GAP_BAND_FACTOR = 2.0
+# the modes stop the trainer when its next epoch would end past this many
 # seconds from the mode's start: a 3600 s call less the tail's time
 A12_DEADLINE_S = 3300.0
 A12_POLL_S = 5.0
@@ -4208,39 +4328,70 @@ A12_POLL_S = 5.0
 A12_TIMED_BATCHES = 40
 
 
-def a12_references(runs_dir=os.path.join(REPO, "runs")):
-    """The JAX records the mode is held to, read from `runs_dir`: each
-    run's metrics records, r5_regression's atomref table and
-    standardization, its steps per epoch and occupancy_pairs."""
+@dataclasses.dataclass(frozen=True)
+class FullRecipe:
+    """A recipe of the repository trained on the whole A12 set by a mode
+    of its own (`--<tag>-full`)."""
+    tag: str
+    runs: tuple       # the JAX runs it is held to; the first gives the
+                      # statistics, steps per epoch and occupancy_pairs
+    args: str         # its args.json
+    flags: tuple      # the training CLI's flags beside --config,
+                      # --data-npz and --workdir
+    gate: object      # (records, refs, baselines) -> (rows, faults)
+    report: object    # the gate's rows -> the lines of its table
+
+    @property
+    def atomref(self) -> bool:
+        return "--atomref-fit" in self.flags
+
+    @property
+    def feat_dtype(self) -> str:
+        if "--feat-dtype" in self.flags:
+            return self.flags[self.flags.index("--feat-dtype") + 1]
+        return "float32"
+
+
+def recipe_references(recipe, runs_dir=os.path.join(REPO, "runs")):
+    """The JAX records `recipe` is held to, read from `runs_dir`: each
+    run's metrics records, the first run's standardization (and atomref
+    table, where the recipe fits one), its steps per epoch and
+    occupancy_pairs."""
     def read(run, name):
         with open(os.path.join(runs_dir, run, name)) as f:
             if name.endswith(".jsonl"):
                 return [json.loads(line) for line in f if line.strip()]
             return json.load(f)
 
-    curves = {run: read(run, "metrics.jsonl") for run in A12_RUNS}
-    first = curves[A12_RUNS[0]][0]
-    return {"curves": curves,
-            "atomref": read(A12_RUNS[0], "atomref.json"),
-            "standardization": read(A12_RUNS[0], "standardization.json"),
+    curves = {run: read(run, "metrics.jsonl") for run in recipe.runs}
+    first = curves[recipe.runs[0]][0]
+    refs = {"curves": curves,
+            "standardization": read(recipe.runs[0], "standardization.json"),
             "steps_per_epoch": first["step"] // first["epoch"],
             "occupancy_pairs": first["occupancy_pairs"]}
+    if recipe.atomref:
+        refs["atomref"] = read(recipe.runs[0], "atomref.json")
+    return refs
 
 
-def a12_gate(records, refs):
-    """The mode's gate on the port's metrics records. Returns (rows,
-    faults): rows (metric, epoch, port, r5, r4, port / the larger JAX
-    value, limit, ok) of best_val_mae at every epoch and of test_mae at
-    the last; faults, each check that failed as text. With `refs` None (a
-    set other than the A12 set) only the checks that need no JAX record:
-    one record at least, consecutive epochs, bad_steps 0, finite losses
-    and one step count per epoch."""
-    faults = []
+def a12_references(runs_dir=os.path.join(REPO, "runs")):
+    """`recipe_references` of the flagship recipe (A12_RUNS)."""
+    return recipe_references(A12, runs_dir)
+
+
+def record_faults(records, refs, min_epochs):
+    """The bookkeeping of a full-scale run's metrics records, each failed
+    check as text: one record at least; consecutive epochs from 1,
+    bad_steps 0, finite losses and step = the steps per epoch x epoch
+    (the reference's, or without `refs` the first record's); with `refs`
+    also `min_epochs` records at least and occupancy_pairs bitwise the
+    reference's."""
     if not records:
-        return [], ["no complete epoch"]
-    if refs is not None and len(records) < A12_MIN_EPOCHS:
+        return ["no complete epoch"]
+    faults = []
+    if refs is not None and len(records) < min_epochs:
         faults.append(f"{len(records)} epochs reached, fewer than "
-                      f"{A12_MIN_EPOCHS}")
+                      f"{min_epochs}")
     spe = (refs["steps_per_epoch"] if refs is not None
            else records[0]["step"] // max(records[0]["epoch"], 1))
     for i, r in enumerate(records, 1):
@@ -4257,7 +4408,19 @@ def a12_gate(records, refs):
             faults.append(f"epoch {i}: occupancy_pairs "
                           f"{r.get('occupancy_pairs')!r}, not "
                           f"{refs['occupancy_pairs']!r}")
-    if refs is None:
+    return faults
+
+
+def a12_gate(records, refs, baselines=None):
+    """The A12 mode's gate on the port's metrics records. Returns (rows,
+    faults): rows (metric, epoch, port, r5, r4, port / the larger JAX
+    value, limit, ok) of best_val_mae at every epoch and of test_mae at
+    the last; faults, each check that failed as text. With `refs` None (a
+    set other than the A12 set) only `record_faults`' checks that need no
+    JAX record. `baselines` is not read: the gate holds the port to the
+    JAX runs alone."""
+    faults = record_faults(records, refs, A12_MIN_EPOCHS)
+    if not records or refs is None:
         return [], faults
     curves = [refs["curves"][run] for run in A12_RUNS]
     rows = []
@@ -4283,6 +4446,117 @@ def a12_gate(records, refs):
                f"JAX value ({max(r5, r4)!r}), over {limit}"
                for m, e, got, r5, r4, ratio, limit, ok in rows if not ok]
     return rows, faults
+
+
+def a12_report(rows):
+    """The lines of `a12_gate`'s table."""
+    head = ["metric | epoch | port | r5_regression | r4_mixed | port / the "
+            "larger JAX | limit | verdict"] if rows else []
+    return head + [f"{m} | {e} | {got!r} | {r5!r} | {r4!r} | {ratio:.4f} | "
+                   f"{limit} | {'pass' if ok else 'FAIL'}"
+                   for m, e, got, r5, r4, ratio, limit, ok in rows]
+
+
+def gap_spread(curves, epoch):
+    """The two runs' largest |r5 - r4| of val_mae over epochs 1-`epoch`."""
+    a, b = (c[:epoch] for c in curves)
+    return max(abs(x["val_mae"] - y["val_mae"]) for x, y in zip(a, b))
+
+
+def gap_gate(records, refs, baselines):
+    """The gap mode's gate on the port's metrics records. Returns (rows,
+    faults): rows (metric, E, port, the better constant, r5, r4, share of
+    the gain kept, GAP_SHARE, port - the larger JAX value, band, ok) of
+    best_val_mae and of the best epoch's test_mae at the last epoch
+    reached E, the better constant being the smaller of the split's two
+    constant MAEs, the share (constant - port) / (constant - the larger
+    JAX value at E) and the band GAP_BAND_FACTOR x `gap_spread` up to E;
+    faults, each check that failed as text. `baselines`: the constant
+    predictors' MAEs, as `constant_baselines` gives them. With `refs` None
+    only `record_faults`' checks that need no JAX record."""
+    faults = record_faults(records, refs, GAP_MIN_EPOCHS)
+    if not records or refs is None:
+        return [], faults
+    curves = [refs["curves"][run] for run in GAP_RUNS]
+    e = records[-1]["epoch"]
+    if e > min(len(c) for c in curves):
+        return [], faults + [f"epoch {e}: no JAX record"]
+    rows = []
+    for metric, split in (("best_val_mae", "val"), ("test_mae", "test")):
+        got = records[-1][metric]
+        jax = [c[e - 1][metric] for c in curves]
+        base = min(baselines[split], baselines[f"{split}_median"])
+        if base <= max(jax):
+            faults.append(f"{metric}: the better constant {split} baseline "
+                          f"{base!r} is not above the JAX runs' {max(jax)!r}")
+            continue
+        band = GAP_BAND_FACTOR * gap_spread(curves, e)
+        if got is None or not math.isfinite(got):
+            share, over = -math.inf, math.inf
+        else:
+            share, over = (base - got) / (base - max(jax)), got - max(jax)
+        rows.append((metric, e, got, base, *jax, share, GAP_SHARE, over,
+                     band, share >= GAP_SHARE and over <= band))
+    faults += [f"{m} at epoch {e}: {got!r} keeps {share:.4f} of the worse "
+               f"JAX run's gain over the better constant {base!r} (at "
+               f"least {limit}) and lies {over:+.5f} from that run (band "
+               f"{band:.5f})"
+               for m, e, got, base, r5, r4, share, limit, over, band, ok
+               in rows if not ok]
+    return rows, faults
+
+
+def gap_report(rows):
+    """The lines of `gap_gate`'s table."""
+    head = ["metric | epoch | port | better constant | gap_r5_50k | "
+            "gap_molwise_r4 | share of the gain kept | at least | port - "
+            "the larger JAX | band | verdict"] if rows else []
+    return head + [f"{m} | {e} | {got!r} | {base!r} | {r5!r} | {r4!r} | "
+                   f"{share:.4f} | {limit} | {over:+.5f} | {band:.5f} | "
+                   f"{'pass' if ok else 'FAIL'}"
+                   for m, e, got, base, r5, r4, share, limit, over, band, ok
+                   in rows]
+
+
+A12 = FullRecipe(
+    tag="a12", runs=A12_RUNS, args=FLAGSHIP_ARGS,
+    flags=("--atomref-fit", "--standardize", "--cache-batches", "on"),
+    gate=a12_gate, report=a12_report)
+# the flags of scripts/run_gap_r5.sh that args.json does not record
+GAP = FullRecipe(
+    tag="gap", runs=GAP_RUNS, args=GAP_ARGS,
+    flags=("--standardize", "--pack-mixed", "--cache-batches", "on",
+           "--feat-dtype", "float16"),
+    gate=gap_gate, report=gap_report)
+
+
+def constant_baselines(graphs, tcfg):
+    """The val-split and test-split MAE, in the label's units, of
+    predicting every molecule the train split's mean label, and of
+    predicting its median (host arithmetic on the recipe's split of the
+    raw targets)."""
+    import numpy as np
+    from x2gnn_tpu_torch.data.dataset import prepare_targets
+    from x2gnn_tpu_torch.train.trainer import make_split, resolve_division
+
+    y = np.asarray(prepare_targets(graphs, tcfg.target), np.float64)
+    n = len(graphs)
+    train, val, test = make_split(n, tcfg.random_seed,
+                                  resolve_division(n, tcfg.division))
+    mean, median = float(np.mean(y[train])), float(np.median(y[train]))
+    return {"train_mean": mean,
+            "val": float(np.mean(np.abs(y[val] - mean))),
+            "test": float(np.mean(np.abs(y[test] - mean))),
+            "train_median": median,
+            "val_median": float(np.mean(np.abs(y[val] - median))),
+            "test_median": float(np.mean(np.abs(y[test] - median)))}
+
+
+def train_command(recipe, npz, run):
+    """The training CLI's command line of `recipe` on the cache `npz`,
+    writing into `run`, as a user runs it."""
+    return [sys.executable, "-m", "x2gnn_tpu_torch.train", "--config",
+            recipe.args, "--data-npz", npz, *recipe.flags, "--workdir", run]
 
 
 def complete_records(path):
@@ -4357,14 +4631,17 @@ def _host_lines(cmd):
     return out.stdout.strip().splitlines()
 
 
-def a12_step_timings(graphs, targets, std, mcfg, tcfg, device, work):
+def full_step_timings(graphs, targets, std, mcfg, tcfg, device, work,
+                      feat_dtype):
     """In-process timings of the recipe on the whole set, after the run:
     the plan of the training split (seconds), the host assembly of a
-    packed batch (ms), a packed training step on the plan's first
-    A12_TIMED_BATCHES batches, cached (ms, CUDA events, median of 30;
-    the plan puts its largest molecules first, so these are its heaviest
-    steps), the val and test passes from the device cache (s, warm) and
-    the peak device memory of these steps (GB)."""
+    packed batch (ms), a packed training step (with its dropout masks,
+    where the model has dropout) on the plan's first A12_TIMED_BATCHES
+    batches, cached (ms, CUDA events, median of 30; the plan puts its
+    largest molecules first, so these are its heaviest steps), the val
+    and test passes from the device cache (s, warm) and the peak device
+    memory of these steps (GB). Returns (the timings, the trainer, its
+    state after the steps, the timed device batches)."""
     import torch
     from x2gnn_tpu_torch.models.x2gnn import X2GNN
     from x2gnn_tpu_torch.train.trainer import Trainer
@@ -4372,7 +4649,8 @@ def a12_step_timings(graphs, targets, std, mcfg, tcfg, device, work):
     model = X2GNN(mcfg, torch.Generator().manual_seed(0), device=device)
     t0 = time.perf_counter()
     trainer = Trainer(model, mcfg, tcfg, graphs, targets, workdir=work,
-                      std=std, device=device, cache_batches=True)
+                      std=std, device=device, cache_batches=True,
+                      feat_dtype=feat_dtype)
     plan = trainer._plan_of(trainer.train_idx)
     plan_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -4391,82 +4669,188 @@ def a12_step_timings(graphs, targets, std, mcfg, tcfg, device, work):
         trainer.evaluate(state, idx)
         torch.cuda.synchronize()
         evals[name] = time.perf_counter() - t0
-    return {"plan_s": plan_s, "plan_batches": len(plan),
-            "n_train": len(trainer.train_idx),
-            "assemble_ms": assemble_ms, "step_ms": ms,
-            "step_peak_gb": peak_gb, "val_s": evals["val"],
-            "test_s": evals["test"]}
+    return ({"plan_s": plan_s, "plan_batches": len(plan),
+             "n_train": len(trainer.train_idx),
+             "assemble_ms": assemble_ms, "step_ms": ms,
+             "step_peak_gb": peak_gb, "val_s": evals["val"],
+             "test_s": evals["test"]}, trainer, state, batches)
 
 
-def a12_full(n=A12_N, deadline_s=A12_DEADLINE_S):
-    """A12 at full scale: the A12 set of `n` molecules built by the
-    port's builder, its atomref fit and standardization held to the JAX
-    run's, the flagship recipe trained by the training CLI until its next
-    epoch would end past `deadline_s` seconds from the start, and every
-    epoch held to the two JAX runs (`a12_gate`). Everything is written
-    into a temporary directory. With `n` other than A12_N the JAX checks
-    are skipped. Returns whether every check passed (always False for
-    another `n`: only the A12 set can pass)."""
-    import numpy as np
+def drop_kernel_rows(trainer, state, batch, card, label):
+    """The kernels' <drop> instances at the set's scale, on `batch`, the
+    plan's first (its heaviest): every tier window's forward and backward
+    under seeded masks against their plain versions within phase 3's
+    gates and timed (`check_masked_window`), the reduce on each tier's
+    <drop> partials against a float64 sum and timed against
+    partial.sum(0); the launches of one training step on the batch,
+    counted with the counters zeroed just before it. An epoch's launches
+    are logged as the training split's plan gives them (conv_layers x the
+    windows of each planned step), not counted: the training CLI runs in
+    a process of its own. `label` names the recipe and the set in the
+    rows and the log. Returns the kernels line's rows."""
+    import torch
+    from x2gnn_tpu_torch.models.x2gnn import attention_windows
+    from x2gnn_tpu_torch.ops.blocked_attn import (
+        blocked_attention_bwd_partials, blocked_attention_fwd,
+        reset_launch_counts)
+
+    mcfg = trainer.mcfg
+    H, K, L = mcfg.heads, mcfg.rbf_dim, mcfg.conv_layers
+    windows = windows_of(batch)
+    # an epoch's launches of each kernel by the plan's arithmetic
+    per_epoch = L * sum(len(attention_windows(b.n_node, b.n_deg, b.n_hi,
+                                              b.n_deg_lo, b.tiers))
+                        for _, b, _ in trainer._plan_of(trainer.train_idx))
+    reset_launch_counts()
+    step = int(state.step)
+    trainer.train_step(state, batch, step)
+    torch.cuda.synchronize()
+    shapes, counts = launch_shapes(), launch_counts()
+    expect = L * len(windows)
+    log(f"[{label}] one training step on the plan's first batch (N="
+        f"{batch.in_edges.shape[0]}, D={batch.in_edges.shape[1]}, "
+        f"{len(windows)} windows): launches {json.dumps(counts)}, per "
+        f"variant fwd {per_variant(shapes['fwd_variants'])}, bwd "
+        f"{per_variant(shapes['bwd_variants'])} (expected {expect} of "
+        f"each, all <drop>)")
+    if (counts != dict.fromkeys(("fwd", "bwd", "reduce"), expect)
+            or per_variant(shapes["fwd_variants"]) != {"drop": expect}
+            or per_variant(shapes["bwd_variants"]) != {"drop": expect}):
+        raise AssertionError(f"{label}: a step's launches {counts}, "
+                             f"{shapes}")
+    args = batch_kernel_inputs(batch, mcfg, seed=194)
+    rows = []
+    for t, win in enumerate(windows):
+        wargs = window_args(args, win)
+        recs = check_masked_window(f"{label} tier {t}", wargs, mcfg,
+                                   seed=200 + 10 * t, timed=True)
+        shape = window_shape(win)
+        ichunk = win[3] > 40
+        note = f"tier {t}, {win} of the {label} plan's heaviest batch"
+        N, DI, DK = shape
+        m = keep_mask((N, DI, DK, H), DROP_RATES[0], 300 + t,
+                      wargs[0].device)
+        out = blocked_attention_fwd(*wargs, heads=H, num_radial=K,
+                                    dropout_mask=m)
+        g = torch.ones_like(out)
+        partial = blocked_attention_bwd_partials(
+            *wargs, g, heads=H, num_radial=K, out=out, dropout_mask=m)[-1]
+        tag = f"{label} tier {t} N={N} DI={DI} DK={DK}"
+        red, red_err = check_reduce(tag, partial)
+        recs["reduce"] = time_reduce(tag, partial, red, red_err)
+        for name, line, source in (
+                ("fwd drop", 282 if ichunk else 166, "blocked_attn_fwd.cu"),
+                ("bwd drop", 346 if ichunk else 198, "blocked_attn_bwd.cu"),
+                ("reduce", 271, "blocked_attn_bwd.cu")):
+            side = name.split()[0]
+            kernel = ("reduce_rows (the <drop> backward's partials"
+                      if side == "reduce" else f"blocked_attn_{side} (drop")
+            step_n = (counts["reduce"] // len(windows) if side == "reduce"
+                      else shapes[f"{side}_variants"].get(
+                          ("drop", *shape), 0))
+            rows.append({
+                "name": f"{kernel}, {label} tier {t})", "route": "cuda",
+                "source": f"x2gnn_tpu_torch/ops/csrc/{source}",
+                "replaces": f"{PALLAS}:{line}", "launches": step_n,
+                "window": note, **recs[name]})
+    reset_launch_counts()
+    for side in ("fwd drop", "bwd drop", "reduce"):
+        sel = [r for r in rows if r["name"].startswith(
+            "reduce_rows" if side == "reduce"
+            else f"blocked_attn_{side.split()[0]} (drop")]
+        log(f"[{card}] {label} {side} over the {len(sel)} tiers: "
+            f"{sum(r['ms'] for r in sel):.4f} ms back to back, bound "
+            f"{sum(r['bound_ms'] for r in sel):.5f} ms, plain "
+            f"{sum(r['plain_ms'] for r in sel):.4f} ms; "
+            f"{sum(r['launches'] for r in sel)} launches a step (counted); "
+            f"{per_epoch} an epoch by the plan's arithmetic (conv_layers x "
+            f"the windows of each planned step; not counted)")
+    return rows
+
+
+def full_recipe(recipe, n=A12_N, deadline_s=A12_DEADLINE_S):
+    """`recipe` at full scale: the A12 set of `n` molecules built by the
+    port's builder, its label statistics (and atomref fit) held to the
+    first JAX run's, the constant predictors' MAEs printed and handed to
+    the recipe's gate, the recipe trained by the training CLI until
+    its next epoch would end past `deadline_s` seconds from the start,
+    and its records held to the JAX runs by the recipe's gate; then the
+    timings and, where the model has dropout, the kernels' <drop>
+    instances at the set's heaviest batch (`drop_kernel_rows`).
+    Everything is written into a temporary directory. With `n` other than
+    A12_N the JAX checks are skipped. Returns (whether every check passed
+    (always False for another `n`: only the A12 set can pass), the
+    kernels line's rows)."""
     import torch
     t_start = time.perf_counter()
+    tag = recipe.tag
     if not torch.cuda.is_available():
-        raise RuntimeError("--a12-full: no CUDA device; the mode runs only "
-                           "on the card")
+        raise RuntimeError(f"--{tag}-full: no CUDA device; the mode runs "
+                           "only on the card")
+    from x2gnn_tpu_torch.config import load_configs
     from x2gnn_tpu_torch.data.dataset import load_graph_cache
     from x2gnn_tpu_torch.ops import _build
-    from x2gnn_tpu_torch.profile_training import flagship_training_configs
 
     card = _host_lines(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"])[0]
     print(card, flush=True)
     deadline = t_start + deadline_s
     full = n == A12_N
-    refs = a12_references() if full else None
+    refs = recipe_references(recipe) if full else None
     if not full:
-        log(f"[a12] n={n}: a trial of the mechanics; the JAX checks are "
+        log(f"[{tag}] n={n}: a trial of the mechanics; the JAX checks are "
             f"skipped and no ok line is printed (the acceptance run is "
             f"n={A12_N})")
     cores = len(os.sched_getaffinity(0))
-    mcfg, tcfg = flagship_training_configs()
+    mcfg, tcfg = load_configs(recipe.args)
     device = torch.device("cuda")
     for name, built in _build.build_all().items():
-        log(f"[a12] kernel {name}: {built.seconds:.2f} s nvcc")
-    work = tempfile.mkdtemp(prefix="a12_full_")
+        log(f"[{tag}] kernel {name}: {built.seconds:.2f} s nvcc")
+    work = tempfile.mkdtemp(prefix=f"{tag}_full_")
+    rows = []
     try:
         for line in (_host_lines(["free", "-g"])
                      + _host_lines(["df", "-h", work])):
-            log(f"[a12] host: {line}")
+            log(f"[{tag}] host: {line}")
         # 1. the set
         t0 = time.perf_counter()
         run_cli(["x2gnn_tpu_torch.data.make_synthetic", "--n", str(n),
                  "--name", A12_NAME, "--basis", "6311", "--gap-label",
-                 "--workers", str(cores), "--cache-dir", work], "a12 build",
+                 "--workers", str(cores), "--cache-dir", work],
+                f"{tag} build",
                 timeout=max(deadline - time.perf_counter(), 60))
         build_s = time.perf_counter() - t0
         npz = os.path.join(work, f"{A12_NAME}.npz")
-        log(f"[a12] build: {n} molecules in {build_s:.1f} s, "
+        log(f"[{tag}] build: {n} molecules in {build_s:.1f} s, "
             f"{build_s * 1e3 / n:.2f} ms per molecule over {cores} host "
             f"cores; {os.path.getsize(npz) / 1e9:.2f} GB npz")
         for line in (_host_lines(["free", "-g"])
                      + _host_lines(["df", "-h", work])):
-            log(f"[a12] host: {line}")
-        # 2. the atomref fit and the standardization
+            log(f"[{tag}] host: {line}")
+        # 2. the labels: the atomref fit and the standardization
         t0 = time.perf_counter()
         graphs = load_graph_cache(npz)
-        targets, std, atomref, mu, sigma = curve_labels(graphs, tcfg)
-        log(f"[a12] loaded the set and fitted its labels in "
+        targets, std, atomref, mu, sigma = curve_labels(
+            graphs, tcfg, atomref=recipe.atomref)
+        log(f"[{tag}] loaded the set and fitted its labels in "
             f"{time.perf_counter() - t0:.1f} s")
+        source = f"runs/{recipe.runs[0]}'s"
         if full:
-            check_curve_stats(atomref, mu, sigma, refs, tag="a12",
-                              source=f"runs/{A12_RUNS[0]}'s")
-        # 3. the recipe as a user runs it
+            check_curve_stats(atomref, mu, sigma, refs, tag=tag,
+                              source=source)
+        # 3. the constant baselines
+        baselines = constant_baselines(graphs, tcfg)
+        log(f"[{tag}] constant baselines (every molecule predicted the "
+            f"train split's mean label {baselines['train_mean']!r}): val "
+            f"MAE {baselines['val']!r}, test MAE {baselines['test']!r}; "
+            f"its median {baselines['train_median']!r}: val MAE "
+            f"{baselines['val_median']!r}, test MAE "
+            f"{baselines['test_median']!r}")
+        # 4. the recipe as a user runs it
         run = os.path.join(work, "run")
         metrics = os.path.join(run, "metrics.jsonl")
-        cmd = [sys.executable, "-m", "x2gnn_tpu_torch.train", "--config",
-               FLAGSHIP_ARGS, "--data-npz", npz, "--atomref-fit",
-               "--standardize", "--cache-batches", "on", "--workdir", run]
-        log(f"[a12] training: {' '.join(cmd[1:])}; stopped when its next "
+        cmd = train_command(recipe, npz, run)
+        log(f"[{tag}] training: {' '.join(cmd[1:])}; stopped when its next "
             f"epoch would end past {deadline_s:.0f} s from the start "
             f"({deadline - time.perf_counter():.0f} s from now)")
         samples = []
@@ -4491,31 +4875,34 @@ def a12_full(n=A12_N, deadline_s=A12_DEADLINE_S):
         train_s = time.perf_counter() - t_train
         with open(os.path.join(work, "train.log")) as f:
             for line in f.read().strip().splitlines()[-8:]:
-                log(f"[a12] trainer: {line}")
+                log(f"[{tag}] trainer: {line}")
         how = "stopped by the deadline" if stopped else "ended"
-        log(f"[a12] trainer {how} after {train_s:.1f} s (exit {rc}); "
+        log(f"[{tag}] trainer {how} after {train_s:.1f} s (exit {rc}); "
             f"{len(records)} complete "
             f"epochs of {tcfg.max_epoch}: the run's cut")
         if not stopped and rc != 0:
-            raise AssertionError(f"a12: the trainer exited {rc}")
+            raise AssertionError(f"{tag}: the trainer exited {rc}")
         if full:
             # the files the training CLI wrote beside its run
-            with open(os.path.join(run, "atomref.json")) as f:
-                written = json.load(f)
+            written = None
+            if recipe.atomref:
+                with open(os.path.join(run, "atomref.json")) as f:
+                    written = json.load(f)
             with open(os.path.join(run, "standardization.json")) as f:
                 written_std = json.load(f)
             check_curve_stats(written, written_std["mu"],
-                              written_std["sigma"], refs, tag="a12 CLI",
-                              source=f"runs/{A12_RUNS[0]}'s")
-        # 4. the gate
-        rows, faults = a12_gate(records, refs)
-        if rows:
-            log("[a12] metric | epoch | port | r5_regression | r4_mixed | "
-                "port / the larger JAX | limit | verdict")
-        for m, e, got, r5, r4, ratio, limit, ok in rows:
-            log(f"[a12] {m} | {e} | {got!r} | {r5!r} | {r4!r} | "
-                f"{ratio:.4f} | {limit} | {'pass' if ok else 'FAIL'}")
-        # 5. the timings
+                              written_std["sigma"], refs, tag=f"{tag} CLI",
+                              source=source)
+        # 5. the gate
+        gate_rows, faults = recipe.gate(records, refs, baselines)
+        for line in recipe.report(gate_rows):
+            log(f"[{tag}] {line}")
+        for r in records:
+            log(f"[{tag}] epoch {r['epoch']}: val_mae {r['val_mae']!r}, "
+                f"best_val_mae {r['best_val_mae']!r}, test_mae "
+                f"{r['test_mae']!r}, loss {r['loss']!r}, lr_scale "
+                f"{r.get('lr_scale')!r}")
+        # 6. the timings
         secs = [r["seconds"] for r in records]
         log(f"[{card}] epoch seconds (wall clock, with evaluation and "
             f"checkpoints): {', '.join(f'{s:.1f}' for s in secs)}")
@@ -4540,20 +4927,22 @@ def a12_full(n=A12_N, deadline_s=A12_DEADLINE_S):
                 near = min(samples, key=lambda s: abs(s[0] - at))
                 if near[0] > at + 2 * A12_POLL_S:
                     continue      # the trainer had ended
-                log(f"[a12] at epoch {e}'s record: card {near[1]} MiB, "
+                log(f"[{tag}] at epoch {e}'s record: card {near[1]} MiB, "
                     f"trainer RSS {near[2]:.2f} GB")
         t0 = time.perf_counter()
-        timed = a12_step_timings(graphs, targets, std, mcfg, tcfg, device,
-                                 os.path.join(work, "timing"))
+        timed, trainer, state, batches = full_step_timings(
+            graphs, targets, std, mcfg, tcfg, device,
+            os.path.join(work, "timing"), recipe.feat_dtype)
         spe = records[0]["step"] if records else timed["plan_batches"]
+        masks = (", with its dropout masks" if mcfg.dropout > 0 else "")
         log(f"[{card}] in-process after the run "
             f"({time.perf_counter() - t0:.1f} s): plan of the training "
             f"split {timed['plan_s']:.1f} s ({timed['plan_batches']} "
             f"batches), host assembly "
             f"{timed['assemble_ms']:.2f} ms per packed batch, "
-            f"{timed['step_ms']:.3f} ms per packed training step (median "
-            f"of 30 on the plan's first {A12_TIMED_BATCHES} batches, its "
-            f"largest molecules, cached; CUDA events), "
+            f"{timed['step_ms']:.3f} ms per packed training step{masks} "
+            f"(median of 30 on the plan's first {A12_TIMED_BATCHES} "
+            f"batches, its largest molecules, cached; CUDA events), "
             f"peak allocated {timed['step_peak_gb']:.2f} GB; val pass "
             f"{timed['val_s']:.2f} s, test pass {timed['test_s']:.2f} s "
             f"(cached, warm)")
@@ -4561,12 +4950,34 @@ def a12_full(n=A12_N, deadline_s=A12_DEADLINE_S):
         log(f"[{card}] an epoch of such steps without evaluation: "
             f"{train_only:.1f} s ({spe} steps x {timed['step_ms']:.3f} ms), "
             f"{timed['n_train'] / train_only:.1f} training molecules/s")
+        # 7. the dropout kernels at the set's scale
+        if mcfg.dropout > 0:
+            t0 = time.perf_counter()
+            rows = drop_kernel_rows(trainer, state, batches[0], card,
+                                    f"{tag} n={n}")
+            log(f"[{tag}] the <drop> kernels on the heaviest batch took "
+                f"{time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    log(f"[a12] done in {time.perf_counter() - t_start:.1f} s")
+    log(f"[{tag}] done in {time.perf_counter() - t_start:.1f} s")
     if faults:
-        raise AssertionError(f"a12: {len(faults)} checks failed: {faults}")
-    return full
+        raise AssertionError(f"{tag}: {len(faults)} checks failed: {faults}")
+    return full, rows
+
+
+def a12_full(n=A12_N, deadline_s=A12_DEADLINE_S):
+    """A12 at full scale: `full_recipe` of the flagship recipe. Returns
+    whether every check passed (always False for an `n` other than
+    A12_N)."""
+    return full_recipe(A12, n, deadline_s)[0]
+
+
+def gap_full(n=A12_N, deadline_s=A12_DEADLINE_S):
+    """The gap recipe at full scale: `full_recipe` of
+    runs/gap_r5_50k/args.json with scripts/run_gap_r5.sh's flags,
+    held to the two JAX gap runs by `gap_gate`. Returns (whether every
+    check passed, the <drop> kernels' rows)."""
+    return full_recipe(GAP, n, deadline_s)
 
 
 # ---- --multi-card: the parallel paths on four cards over NCCL ----
@@ -5714,12 +6125,18 @@ def parse_args(argv=None):
     p.add_argument("--a12-full", action="store_true",
                    help="run only A12 at full scale: the flagship recipe on "
                         "the whole A12 set, held to the JAX runs")
+    p.add_argument("--gap-full", action="store_true",
+                   help="run only the gap recipe at full scale: "
+                        "runs/gap_r5_50k/args.json on the whole A12 set, "
+                        "held to the two JAX gap runs")
     p.add_argument("--deadline-s", type=float, default=A12_DEADLINE_S,
-                   help="--a12-full: stop training when its next epoch "
-                        "would end past this many seconds from the start")
+                   help="--a12-full, --gap-full: stop training when its "
+                        "next epoch would end past this many seconds from "
+                        "the start")
     p.add_argument("--n", type=int, default=A12_N,
-                   help="--a12-full: molecules to build; any other count "
-                        "than the A12 set's tries the mechanics only")
+                   help="--a12-full, --gap-full: molecules to build; any "
+                        "other count than the A12 set's tries the "
+                        "mechanics only")
     p.add_argument("--multi-card", action="store_true",
                    help=f"run only the parallel paths on {MC_RANKS} cards "
                         "of this host over NCCL")
@@ -5758,6 +6175,12 @@ def main(argv=None) -> int:
         return 1
     if args.a12_full:
         if a12_full(args.n, args.deadline_s):
+            print(ok_line(), flush=True)
+        return 0
+    if args.gap_full:
+        full, rows = gap_full(args.n, args.deadline_s)
+        print(json.dumps({"kernels": rows}), flush=True)
+        if full:
             print(ok_line(), flush=True)
         return 0
 

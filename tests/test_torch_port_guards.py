@@ -32,31 +32,34 @@ def _imports(path):
             yield node.args[0].value
 
 
+# modules of the port the no-JAX scan must reach (each is checked to be
+# among the scanned files)
+SCANNED_MODULES = (
+    "train/trainer.py", "train/optim.py", "train/ema.py", "train/loss.py",
+    "train/checkpoint.py", "train/__main__.py", "data/molecule.py",
+    "profile_training.py", "data/dataset.py", "data/featurize.py",
+    "evaluate.py", "infer.py", "utils/determinism.py",
+    "utils/torch_ckpt.py", "utils/profiling.py", "utils/parity.py",
+    "data/prefetch.py", "data/synthetic.py", "data/make_synthetic.py",
+    "data/integrals/basis.py", "data/integrals/md.py",
+    "data/integrals/engine.py", "data/integrals/build.py",
+    "models/x2gnn.py", "nn/conv.py", "ops/attention.py", "ops/segment.py",
+    "ops/basis.py", "data/batching.py", "parallel/mesh.py",
+    "parallel/data_parallel.py", "parallel/ep_model.py",
+    "parallel/hybrid.py", "parallel/edge_partition.py",
+    "parallel/__init__.py", "__init__.py", "scripts/aid_cv.py",
+    "scripts/featurize_aid.py", "scripts/merge_chunks.py",
+    "scripts/profile_step.py", "scripts/bench_infer.py",
+    "scripts/debug_ep_cost.py", "scripts/bench_scaling.py",
+    "scripts/pack_ab.py", "scripts/pipeline_demo.py",
+    "scripts/prepare_qm9.py")
+
+
 def test_port_imports_no_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 25
     scanned = {str(p.relative_to(REPO)) for p in files}
-    for module in ("train/trainer.py", "train/optim.py", "train/ema.py",
-                   "train/loss.py", "train/checkpoint.py",
-                   "train/__main__.py", "data/molecule.py",
-                   "profile_training.py", "data/dataset.py",
-                   "data/featurize.py", "evaluate.py", "infer.py",
-                   "utils/determinism.py", "utils/torch_ckpt.py",
-                   "utils/profiling.py", "utils/parity.py",
-                   "data/prefetch.py",
-                   "data/synthetic.py", "data/make_synthetic.py",
-                   "data/integrals/basis.py", "data/integrals/md.py",
-                   "data/integrals/engine.py", "models/x2gnn.py",
-                   "nn/conv.py", "ops/attention.py", "ops/segment.py",
-                   "ops/basis.py", "data/batching.py", "parallel/mesh.py",
-                   "parallel/data_parallel.py", "parallel/ep_model.py",
-                   "parallel/hybrid.py", "parallel/edge_partition.py",
-                   "parallel/__init__.py", "__init__.py",
-                   "scripts/aid_cv.py", "scripts/featurize_aid.py",
-                   "scripts/merge_chunks.py", "scripts/profile_step.py",
-                   "scripts/bench_infer.py", "scripts/debug_ep_cost.py",
-                   "scripts/bench_scaling.py", "scripts/pack_ab.py",
-                   "scripts/pipeline_demo.py", "scripts/prepare_qm9.py"):
+    for module in SCANNED_MODULES:
         assert f"x2gnn_tpu_torch/{module}" in scanned, module
     bad = [(str(p.relative_to(REPO)), name) for p in files
            for name in _imports(p)
@@ -253,6 +256,143 @@ def test_every_jax_script_has_a_counterpart_or_a_reason():
     for config in ("flagship_r5_regression", "gap_molwise_r4", "gap_r5_50k",
                    "ref_scale_134k"):
         assert (REPO / "runs" / config / "args.json").exists(), config
+
+
+# every module of the JAX package (x2gnn_tpu/, relative to it) and every
+# Python file at the repository's root but chip_smoke.py (as ../<name>):
+# the port's counterpart, a module that must import, with the files it
+# needs after "+"; or chip_smoke.py, a tests/ file, or none with its reason
+JAX_MODULES = {
+    "__init__.py": "x2gnn_tpu_torch",
+    "config.py": "x2gnn_tpu_torch.config",
+    "data/__init__.py": "x2gnn_tpu_torch.data",
+    "data/batching.py": "x2gnn_tpu_torch.data.batching",
+    "data/dataset.py": "x2gnn_tpu_torch.data.dataset",
+    "data/featurize.py": "x2gnn_tpu_torch.data.featurize",
+    "data/graphs.py": "x2gnn_tpu_torch.data.graphs",
+    "data/integrals/__init__.py": "x2gnn_tpu_torch.data.integrals",
+    "data/integrals/basis.py": "x2gnn_tpu_torch.data.integrals.basis",
+    "data/integrals/build.py": "x2gnn_tpu_torch.data.integrals.build",
+    "data/integrals/engine.py": "x2gnn_tpu_torch.data.integrals.engine "
+                                "+ x2gnn_tpu_torch/data/integrals/csrc/"
+                                "integrals.cpp",
+    "data/integrals/md.py": "x2gnn_tpu_torch.data.integrals.md",
+    "data/molecule.py": "x2gnn_tpu_torch.data.molecule",
+    "data/prefetch.py": "x2gnn_tpu_torch.data.prefetch",
+    "data/synthetic.py": "x2gnn_tpu_torch.data.synthetic",
+    "infer.py": "x2gnn_tpu_torch.infer",
+    "models/__init__.py": "x2gnn_tpu_torch.models",
+    "models/x2gnn.py": "x2gnn_tpu_torch.models.x2gnn",
+    "nn/__init__.py": "x2gnn_tpu_torch.nn",
+    "nn/conv.py": "x2gnn_tpu_torch.nn.conv",
+    "nn/init.py": "x2gnn_tpu_torch.nn.init",
+    "nn/layers.py": "x2gnn_tpu_torch.nn.layers",
+    "nn/norm.py": "x2gnn_tpu_torch.nn.norm",
+    "nn/readout.py": "x2gnn_tpu_torch.nn.readout",
+    "ops/__init__.py": "x2gnn_tpu_torch.ops",
+    "ops/attention.py": "x2gnn_tpu_torch.ops.attention",
+    "ops/basis.py": "x2gnn_tpu_torch.ops.basis",
+    "ops/segment.py": "x2gnn_tpu_torch.ops.segment",
+    # the Pallas package: its one kernel file's entry, re-exported
+    "ops/pallas/__init__.py": "x2gnn_tpu_torch.ops.blocked_attn",
+    "ops/pallas/blocked_attn.py": "x2gnn_tpu_torch.ops.blocked_attn "
+                                  "+ x2gnn_tpu_torch/ops/csrc/"
+                                  "blocked_attn_fwd.cu "
+                                  "+ x2gnn_tpu_torch/ops/csrc/"
+                                  "blocked_attn_bwd.cu "
+                                  "+ x2gnn_tpu_torch/ops/_build.py",
+    "parallel/__init__.py": "x2gnn_tpu_torch.parallel",
+    "parallel/data_parallel.py": "x2gnn_tpu_torch.parallel.data_parallel",
+    "parallel/edge_partition.py": "x2gnn_tpu_torch.parallel.edge_partition",
+    "parallel/ep_model.py": "x2gnn_tpu_torch.parallel.ep_model",
+    "parallel/hybrid.py": "x2gnn_tpu_torch.parallel.hybrid",
+    "parallel/mesh.py": "x2gnn_tpu_torch.parallel.mesh",
+    "train/__init__.py": "x2gnn_tpu_torch.train",
+    "train/checkpoint.py": "x2gnn_tpu_torch.train.checkpoint",
+    "train/ema.py": "x2gnn_tpu_torch.train.ema",
+    "train/loss.py": "x2gnn_tpu_torch.train.loss",
+    "train/optim.py": "x2gnn_tpu_torch.train.optim",
+    "train/trainer.py": "x2gnn_tpu_torch.train.trainer",
+    "utils/__init__.py": "x2gnn_tpu_torch.utils",
+    "utils/determinism.py": "x2gnn_tpu_torch.utils.determinism",
+    "utils/parity.py": "x2gnn_tpu_torch.utils.parity",
+    "utils/profiling.py": "x2gnn_tpu_torch.utils.profiling",
+    "utils/torch_ckpt.py": "x2gnn_tpu_torch.utils.torch_ckpt",
+    "utils/torch_oracle.py": "tests/test_torch_port_oracle.py: the JAX "
+                             "package's test oracle; the port is held to "
+                             "it and keeps no copy",
+    "../train.py": "x2gnn_tpu_torch.train.__main__",
+    "../evaluate.py": "x2gnn_tpu_torch.evaluate",
+    "../bench.py": JAX_SCRIPTS["../bench.py"],
+    "../__graft_entry__.py": "chip_smoke.py: the card's entry, which "
+                             "checks the kernels and drives the main path",
+}
+
+
+def jax_module_files(root):
+    """The JAX package's modules under `root` (x2gnn_tpu/**/*.py, relative
+    to x2gnn_tpu/) and the root's Python files but chip_smoke.py (as
+    ../<name>)."""
+    root = pathlib.Path(root)
+    package = root / "x2gnn_tpu"
+    files = {p.relative_to(package).as_posix()
+             for p in package.rglob("*.py")}
+    return files | {f"../{p.name}" for p in root.glob("*.py")
+                    if p.name != "chip_smoke.py"}
+
+
+def unmapped_jax_modules(root):
+    """(the files of `jax_module_files(root)` JAX_MODULES lacks, the
+    entries of JAX_MODULES with no such file)."""
+    files = jax_module_files(root)
+    return files - set(JAX_MODULES), set(JAX_MODULES) - files
+
+
+def test_every_jax_module_has_a_counterpart_or_a_reason():
+    """JAX_MODULES names exactly the JAX package's modules and the root's
+    files (a new JAX module fails here until it is ported or given its
+    reason); each module it names imports, each file after "+" exists,
+    and the others name chip_smoke.py, a tests/ file that exists, or
+    none with its reason."""
+    import importlib
+    assert unmapped_jax_modules(REPO) == (set(), set())
+    for jax_file, counterpart in JAX_MODULES.items():
+        head, *needs = [t.strip() for t in counterpart.split(" + ")]
+        name = head.split()[0].rstrip(":")
+        if name.startswith("x2gnn_tpu_torch"):
+            importlib.import_module(name)
+        elif name.startswith("tests/"):
+            assert (REPO / name).is_file(), (jax_file, counterpart)
+        else:
+            assert name in ("chip_smoke.py", "none"), (jax_file, counterpart)
+            assert len(head.split()) > 3, (jax_file, "a reason is given")
+        for path in needs:
+            assert (REPO / path).is_file(), (jax_file, path)
+    ported = {m.split()[0] for m in JAX_MODULES.values()}
+    assert "x2gnn_tpu_torch.data.integrals.build" in ported
+
+
+@pytest.mark.parametrize("change", ["a new module", "a removed module",
+                                    "a new root file"])
+def test_the_module_table_flags_a_changed_jax_tree(tmp_path, change):
+    """In a copy of the JAX package and the root's files, an extra .py file
+    is a module the table lacks, and a removed one an entry without a
+    file."""
+    import shutil
+    shutil.copytree(REPO / "x2gnn_tpu", tmp_path / "x2gnn_tpu",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for p in REPO.glob("*.py"):
+        shutil.copy(p, tmp_path / p.name)
+    assert unmapped_jax_modules(tmp_path) == (set(), set())
+    if change == "a new module":
+        (tmp_path / "x2gnn_tpu" / "ops" / "extra.py").write_text("")
+        assert unmapped_jax_modules(tmp_path) == ({"ops/extra.py"}, set())
+    elif change == "a removed module":
+        (tmp_path / "x2gnn_tpu" / "nn" / "norm.py").unlink()
+        assert unmapped_jax_modules(tmp_path) == (set(), {"nn/norm.py"})
+    else:
+        (tmp_path / "serve.py").write_text("")
+        assert unmapped_jax_modules(tmp_path) == ({"../serve.py"}, set())
 
 
 def test_run_io_entry_points_default_to_the_card(tmp_path):

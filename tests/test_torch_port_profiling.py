@@ -154,3 +154,37 @@ def test_cli_check_determinism_exits_3_on_a_mismatch(tmp_path, capsys,
     assert _cli(tmp_path, "--check-determinism") == 3
     assert "MISMATCH" in capsys.readouterr().err
     assert not (tmp_path / "run" / "metrics.jsonl").exists()
+
+
+def test_event_rows_sum_the_profilers_own_events():
+    # event_rows reads the raw events; torch's parsed FunctionEvents of the
+    # same trace (what key_averages sums) give the same us and count per
+    # name. On the CPU the test reads CPU ops: the card's kernels are
+    # events of the same kind, of device type CUDA. No op here calls an op
+    # of its own name: torch's parse merges such CPU pairs into one event,
+    # which kernels never are.
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name
+    from torch.profiler import ProfilerActivity, profile
+
+    from x2gnn_tpu_torch.profile_serving import device_rows, event_rows
+
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(64, 64)))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            torch.exp((x @ x).relu())
+    want = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and not e.is_async:
+            us, n = want.get(e.name, (0.0, 0))
+            want[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    rows = event_rows(prof, DeviceType.CPU)
+    got = {name: (us, n) for us, n, name in rows if not _filter_name(name)}
+    assert rows == sorted(rows, reverse=True)
+    assert got.keys() == {k for k, (us, _) in want.items() if us > 0}
+    assert "aten::mm" in got
+    for name, (us, n) in got.items():
+        assert n == want[name][1]
+        assert us == pytest.approx(want[name][0], rel=1e-9, abs=1e-3)
+    with pytest.raises(RuntimeError, match="no device time"):
+        device_rows(prof)

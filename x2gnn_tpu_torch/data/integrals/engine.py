@@ -24,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import time
 from typing import NamedTuple, Optional, Tuple
 
@@ -70,17 +71,20 @@ def library_path() -> str:
     return os.path.join(_BUILD_DIR, f"libx2integrals-{digest}.so")
 
 
-def build() -> Built:
-    """Compile the engine if this host has no library for its source yet.
+def build(verbose: bool = False) -> Built:
+    """Compile the engine if this host has no library for its source yet;
+    with `verbose`, the g++ command goes to stderr before it runs.
     Raises if g++ fails."""
     path = library_path()
     if os.path.exists(path):
         return Built(path, 0.0)
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_gxx(), *GXX_FLAGS, "-o", tmp, _SRC]
+    if verbose:
+        print(" ".join(cmd), file=sys.stderr, flush=True)
     t0 = time.perf_counter()
-    proc = subprocess.run([_gxx(), *GXX_FLAGS, "-o", tmp, _SRC],
-                          capture_output=True, text=True)
+    proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed for {_SRC} (exit {proc.returncode})"
                            f":\n{proc.stdout}{proc.stderr}")
